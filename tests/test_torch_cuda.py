@@ -1,0 +1,113 @@
+"""The port's CUDA kernels vs their plain versions, on the card.
+
+Marked `cuda`; every test skips where torch sees no GPU (decided inside the
+fixture, never at import). The shapes here are the awkward ones the main path
+does not reach: ragged tiles, channel counts off the kernel's tile sizes,
+signed pads, both depth-to-space orders and 1-byte elements. The main-path
+shapes are checked by chip_smoke.py. Run on a machine with an H100 (it has no
+JAX, so skip the suite's conftest):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Tolerances: float32 runs with TF32 off and differs from cuDNN only in the
+order of float32 sums; bfloat16 outputs round once in the kernel and after
+each op in the plain version, a few bf16 steps (2^-8 relative) at most.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vtoonify_tpu_torch.ops import kernels
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rand(rng, *shape, scale=1.0, shift=0.0):
+    return torch.from_numpy((rng.randn(*shape) * scale + shift).astype(np.float32))
+
+
+def _close(got, want, dtype):
+    err = (got.float() - want.float()).abs().max().item()
+    ref = max(1.0, want.float().abs().max().item())
+    assert err <= TOL[dtype] * ref, (err, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,cin,cout,h,w,modulated,act", [
+    (2, 5, 7, 9, 13, True, True),       # everything ragged
+    (1, 16, 64, 8, 16, True, False),    # exact tiles, raw conv
+    (3, 24, 96, 17, 33, False, True),   # folded form, partial Cout tile
+    (1, 8, 3, 1, 1, True, True),        # single pixel
+])
+def test_modconv3x3(dev, dtype, b, cin, cout, h, w, modulated, act):
+    rng = np.random.RandomState(0)
+    x = _rand(rng, b, cin, h, w)
+    wt = _rand(rng, 3, 3, cin, cout, scale=1.0 / np.sqrt(9 * cin))
+    s = _rand(rng, b, cin, scale=0.5, shift=1.0) if modulated else None
+    d = _rand(rng, b, cout, scale=0.1, shift=1.0) if modulated else None
+    bias = _rand(rng, cout, scale=0.1) if act else None
+    args = [None if t is None else t.to(dev, dtype) for t in (x, wt, s, d, bias)]
+    _close(kernels.modconv3x3(*args), kernels.modconv3x3_plain(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,with_bias", [
+    ((2, 7, 5, 3), True), ((18, 512), True), ((3, 4, 2, 2), False)])
+def test_fused_leaky_relu(dev, dtype, shape, with_bias):
+    rng = np.random.RandomState(1)
+    x = _rand(rng, *shape).to(dev, dtype)
+    bias = _rand(rng, shape[1]).to(dev, dtype) if with_bias else None
+    _close(kernels.fused_leaky_relu(x, bias),
+           kernels.fused_leaky_relu_plain(x, bias), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kt,up,down,pad", [
+    (4, (2, 2), (1, 1), (2, 1, 2, 1)),    # ToRGB's upsample_2x
+    (4, (1, 1), (1, 1), (2, 1, 2, 1)),    # blur
+    (4, (1, 1), (2, 2), (1, 1, 1, 1)),    # downsample_2x
+    (3, (2, 1), (1, 2), (-1, 2, 0, -1)),  # per-axis, negative pads
+    (8, (2, 2), (2, 2), (3, 4, 4, 3)),    # widest taps
+])
+def test_upfirdn2d(dev, dtype, kt, up, down, pad):
+    rng = np.random.RandomState(2)
+    x = _rand(rng, 2, 3, 11, 14).to(dev, dtype)
+    k = torch.from_numpy(rng.rand(kt, kt).astype(np.float32))
+    _close(kernels.upfirdn2d(x, k, up, down, pad),
+           kernels.upfirdn2d_plain(x, k, up, down, pad), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8])
+@pytest.mark.parametrize("phase_minor", [False, True])
+def test_depth_to_space2(dev, dtype, phase_minor):
+    x = torch.arange(2 * 12 * 5 * 7, device=dev).reshape(2, 12, 5, 7)
+    x = (x % 251).to(dtype)
+    got = kernels.depth_to_space2(x, phase_minor)
+    assert torch.equal(got, kernels.depth_to_space2_plain(x, phase_minor))
+
+
+def test_launch_counts_and_refusals(dev):
+    kernels.reset_launch_counts()
+    x = torch.randn(1, 8, 4, 4, device=dev)
+    kernels.fused_leaky_relu(x, torch.zeros(8, device=dev))
+    kernels.depth_to_space2(x)
+    assert kernels.launch_counts()["fused_leaky_relu"] == 1
+    assert kernels.launch_counts()["depth_to_space2"] == 1
+    with pytest.raises(TypeError):
+        kernels.fused_leaky_relu(x.half())
+    with pytest.raises(ValueError):
+        kernels.modconv3x3(x, torch.zeros(3, 3, 4, 2, device=dev))
+    with pytest.raises(ValueError):
+        kernels.upfirdn2d(x, torch.ones(4, 4), up=(4, 4))

@@ -1,0 +1,222 @@
+"""Port ops and kernel plain versions vs the JAX package (CPU).
+
+Inputs are made with numpy seeds and fed to both packages; the port is NCHW
+where the JAX package is NHWC, so results are transposed before comparing.
+Each kernel's plain version (the port's CPU path and its on-card oracle) is
+also held to the JAX Pallas kernel it replaces, run in interpret mode as
+tests/test_pallas.py runs it. Float32 tolerances are float32 rounding of
+differently ordered sums; permutations are compared exactly.
+"""
+
+import importlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from vtoonify_tpu.nn import layers as JL
+from vtoonify_tpu.ops import fused_act as jfa
+from vtoonify_tpu.ops import interp as jinterp
+from vtoonify_tpu.ops import pallas_kernels as jpk
+from vtoonify_tpu_torch.nn import layers
+from vtoonify_tpu_torch.ops import fused_act, interp, kernels, upfirdn2d
+
+# vtoonify_tpu.ops re-exports the function under the module's name
+jup = importlib.import_module("vtoonify_tpu.ops.upfirdn2d")
+
+
+def _nchw(a):
+    return torch.from_numpy(np.ascontiguousarray(np.moveaxis(a, -1, 1)))
+
+
+def _nhwc(t):
+    return np.moveaxis(t.numpy(), 1, -1)
+
+
+@pytest.mark.parametrize("c", [3, 32])
+@pytest.mark.parametrize("kernel,up,down,pad", [
+    ([1, 3, 3, 1], 1, 1, (2, 1)),            # blur
+    ([1, 3, 3, 1], 2, 1, (2, 1)),            # ToRGB's upsample_2x
+    ([1, 3, 3, 1], 1, 2, (1, 1)),            # downsample_2x
+    ([1, 2, 1], 2, 2, (-1, 2)),              # negative pad crops
+    ([1, 3, 3, 1], (2, 1), (1, 2), (2, 1, 0, -1)),  # per-axis factors, pad4
+    ([[1, 2, 1], [2, 4, 0], [1, 0, 3]], 2, 1, (1, 1)),  # non-separable 2-D
+])
+def test_upfirdn2d_matches_jax(kernel, up, down, pad, c):
+    rng = np.random.RandomState(0)
+    x = rng.randn(2, 9, 11, c).astype(np.float32)
+    k = upfirdn2d.make_kernel(kernel)
+    ref = jup.upfirdn2d(jnp.asarray(x), jup.make_kernel(kernel), up=up,
+                        down=down, pad=pad)
+    got = upfirdn2d.upfirdn2d(_nchw(x), k, up=up, down=down, pad=pad)
+    np.testing.assert_allclose(_nhwc(got), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_upsample_2x_and_blur_match_jax():
+    rng = np.random.RandomState(1)
+    x = rng.randn(1, 8, 8, 3).astype(np.float32)
+    kj, kt = jup.make_kernel([1, 3, 3, 1]), upfirdn2d.make_kernel([1, 3, 3, 1])
+    np.testing.assert_allclose(
+        _nhwc(upfirdn2d.upsample_2x(_nchw(x), kt)),
+        np.asarray(jup.upsample_2x(jnp.asarray(x), kj)), atol=1e-5)
+    np.testing.assert_allclose(
+        _nhwc(upfirdn2d.blur(_nchw(x), kt, pad=(2, 1), upsample_factor=2)),
+        np.asarray(jup.blur(jnp.asarray(x), kj, pad=(2, 1),
+                            upsample_factor=2)), atol=1e-5)
+
+
+@pytest.mark.parametrize("shape,with_bias", [
+    ((2, 5, 7, 16), True), ((3, 512), True), ((2, 4, 4, 8), False)])
+def test_fused_leaky_relu_matches_jax(shape, with_bias):
+    rng = np.random.RandomState(2)
+    x = rng.randn(*shape).astype(np.float32)
+    b = rng.randn(shape[-1]).astype(np.float32) if with_bias else None
+    ref = np.asarray(jfa.fused_leaky_relu(
+        jnp.asarray(x), None if b is None else jnp.asarray(b)))
+    xt = _nchw(x) if x.ndim == 4 else torch.from_numpy(x)
+    got = fused_act.fused_leaky_relu(xt, None if b is None else torch.from_numpy(b))
+    got = _nhwc(got) if x.ndim == 4 else got.numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("phase_minor", [False, True])
+def test_depth_to_space2_matches_jax(phase_minor):
+    rng = np.random.RandomState(3)
+    x = rng.randn(2, 5, 6, 12).astype(np.float32)
+    jfn = JL._depth_to_space2_phase_minor if phase_minor else JL.depth_to_space2
+    got = layers.depth_to_space2(_nchw(x), phase_minor=phase_minor)
+    np.testing.assert_array_equal(_nhwc(got), np.asarray(jfn(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("size,align", [
+    ((18, 22), False), ((18, 22), True), ((5, 7), False), ((20, 30), False)])
+def test_resize_bilinear_matches_jax(size, align):
+    rng = np.random.RandomState(4)
+    x = rng.randn(2, 9, 11, 4).astype(np.float32)
+    ref = jinterp.resize_bilinear(jnp.asarray(x), size, align_corners=align)
+    got = interp.resize_bilinear(_nchw(x), size, align_corners=align)
+    np.testing.assert_allclose(_nhwc(got), np.asarray(ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("size", [(4, 5), (9, 11), (18, 22), (7, 3)])
+def test_resize_nearest_matches_jax(size):
+    rng = np.random.RandomState(5)
+    x = rng.randn(2, 8, 10, 4).astype(np.float32)
+    ref = jinterp.resize_nearest(jnp.asarray(x), size)
+    got = interp.resize_nearest(_nchw(x), size)
+    np.testing.assert_array_equal(_nhwc(got), np.asarray(ref))
+
+
+def test_pools_match_jax():
+    rng = np.random.RandomState(6)
+    x = rng.randn(2, 12, 10, 4).astype(np.float32)
+    xj, xt = jnp.asarray(x), _nchw(x)
+    np.testing.assert_array_equal(
+        _nhwc(interp.max_pool(xt, 3, stride=2, padding=1)),
+        np.asarray(jinterp.max_pool(xj, 3, stride=2, padding=1)))
+    for size in (1, (3, 5)):
+        np.testing.assert_allclose(
+            _nhwc(interp.adaptive_avg_pool(xt, size)),
+            np.asarray(jinterp.adaptive_avg_pool(xj, size)), atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# kernel plain versions vs the Pallas kernels they replace (interpret mode)
+
+
+@pytest.mark.parametrize("path", ["modulated", "folded", "raw"])
+def test_modconv3x3_plain_matches_pallas(path):
+    rng = np.random.RandomState(7)
+    b, h, w_, c, cout = 2, 16, 24, 8, 16
+    x = rng.randn(b, h, w_, c).astype(np.float32)
+    w = (rng.randn(3, 3, c, cout) * 0.2).astype(np.float32)
+    s = (rng.randn(b, c) * 0.5 + 1.0).astype(np.float32)
+    d = (rng.randn(b, cout) * 0.1 + 1.0).astype(np.float32)
+    bias = rng.randn(cout).astype(np.float32)
+    if path != "modulated":
+        s = d = None
+    if path == "raw":
+        bias = None
+    j = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    ref = jpk.modconv3x3_fused_pallas(j(x), j(w), j(s), j(d), j(bias), rows=8,
+                                      interpret=True)
+    got = kernels.modconv3x3_plain(_nchw(x), t(w), t(s), t(d), t(bias))
+    np.testing.assert_allclose(_nhwc(got), np.asarray(ref), rtol=2e-5, atol=2e-5)
+
+
+def test_fused_leaky_relu_plain_matches_pallas():
+    rng = np.random.RandomState(8)
+    x = rng.randn(2, 8, 16, 128).astype(np.float32)
+    b = rng.randn(128).astype(np.float32)
+    ref = jpk.fused_leaky_relu_pallas(jnp.asarray(x), jnp.asarray(b),
+                                      interpret=True)
+    got = kernels.fused_leaky_relu_plain(_nchw(x), torch.from_numpy(b))
+    np.testing.assert_allclose(_nhwc(got), np.asarray(ref), atol=1e-6)
+
+
+def test_upfirdn2d_plain_matches_blur_pallas():
+    rng = np.random.RandomState(9)
+    x = rng.randn(2, 16, 16, 8).astype(np.float32)
+    k = jup.make_kernel((1.0, 3.0, 3.0, 1.0))
+    ref = jpk.blur_same_pallas(jnp.asarray(x), k, pad=(2, 1), interpret=True)
+    kt = upfirdn2d.make_kernel((1.0, 3.0, 3.0, 1.0))
+    got = kernels.upfirdn2d_plain(_nchw(x), torch.outer(kt, kt), pad=(2, 1, 2, 1))
+    np.testing.assert_allclose(_nhwc(got), np.asarray(ref), atol=1e-5)
+
+
+def test_depth_to_space2_plain_matches_pallas():
+    rng = np.random.RandomState(10)
+    x = rng.randn(2, 16, 8, 12).astype(np.float32)
+    ref = jpk.depth_to_space2_pallas(jnp.asarray(x), interpret=True)
+    got = kernels.depth_to_space2_plain(_nchw(x), phase_minor=False)
+    np.testing.assert_array_equal(_nhwc(got), np.asarray(ref))
+
+
+def test_cpu_tensors_take_plain_path_and_count_no_launch():
+    """A CPU tensor takes each wrapper's plain version and never touches a
+    launch counter."""
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy(rng.randn(2, 8, 6, 5).astype(np.float32))
+    w = torch.from_numpy(rng.randn(3, 3, 8, 4).astype(np.float32))
+    bias4 = torch.from_numpy(rng.randn(4).astype(np.float32))
+    bias8 = torch.from_numpy(rng.randn(8).astype(np.float32))
+    k2 = torch.outer(upfirdn2d.make_kernel([1, 3, 3, 1]),
+                     upfirdn2d.make_kernel([1, 3, 3, 1]))
+    kernels.reset_launch_counts()
+    pairs = [
+        (kernels.modconv3x3(x, w, bias=bias4),
+         kernels.modconv3x3_plain(x, w, bias=bias4)),
+        (kernels.fused_leaky_relu(x, bias8),
+         kernels.fused_leaky_relu_plain(x, bias8)),
+        (kernels.upfirdn2d(x, k2, up=(2, 2), pad=(2, 1, 2, 1)),
+         kernels.upfirdn2d_plain(x, k2, up=(2, 2), pad=(2, 1, 2, 1))),
+        (kernels.depth_to_space2(x, phase_minor=True),
+         kernels.depth_to_space2_plain(x, phase_minor=True)),
+    ]
+    for got, want in pairs:
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert kernels.launch_counts() == {
+        "modconv3x3": 0, "fused_leaky_relu": 0, "upfirdn2d": 0,
+        "depth_to_space2": 0}
+
+
+def test_port_imports_no_jax():
+    """The port package never imports jax (checked in a fresh interpreter)."""
+    code = (
+        "import sys\n"
+        "import vtoonify_tpu_torch.pipeline.toonify\n"
+        "import vtoonify_tpu_torch.convert.from_jax\n"
+        "import vtoonify_tpu_torch.ops.kernels\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'jax' or m.startswith(('jax.', 'vtoonify_tpu.')))\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr

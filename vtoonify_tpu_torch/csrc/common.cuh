@@ -1,0 +1,37 @@
+// Shared helpers for the port's hand-written Hopper kernels.
+//
+// Every kernel computes in float32 and loads/stores its tensors in the
+// caller's dtype: float32 (dtype code 0) or bfloat16 (dtype code 1). Each
+// exported C function launches on the caller's stream and returns
+// cudaGetLastError() so the Python wrapper can raise on a refused launch.
+#pragma once
+
+#include <cstddef>
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace vt {
+
+enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float leaky_relu_gain(float v, float slope,
+                                                 float gain) {
+  return (v >= 0.f ? v : v * slope) * gain;
+}
+
+}  // namespace vt

@@ -1,0 +1,376 @@
+"""StyleGAN2-family building blocks (port of vtoonify_tpu/nn/layers.py).
+
+Each block is an `nn.Module` that holds the parameters under the JAX
+package's names, plus a function of the same name as the JAX apply function
+that takes the module as `p`:
+
+    p = StyledConv(in_ch, out_ch, 3, style_dim, generator=g)
+    y = styled_conv(p, x, style, upsample=True)
+
+Parameters are stored RAW, as the reference stores them; the equalized-LR
+scales (1/sqrt(fan_in) * lr_mul) are applied at call time. Layouts are
+PyTorch's: activations NCHW, conv weights OIHW, linear weights (out, in).
+Constructors draw from an explicit `torch.Generator` on the CPU, with the
+JAX `init_*` distributions; move the module with `.to(device, dtype)`.
+
+The styled 3x3 convs (plain and polyphase x2 up) run in kernel B1 with their
+bias + leaky-ReLU epilogue fused; the up conv's interleave runs in kernel B4;
+ToRGB's skip upsample in kernel B3; conv_layer's activation in kernel B2.
+Not ported (TPU-only): the space-to-depth packed stage variants and the
+cat2-split weight storage (fusion convs hold one merged weight).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from vtoonify_tpu_torch.ops import kernels
+from vtoonify_tpu_torch.ops.convs import conv2d
+from vtoonify_tpu_torch.ops.fused_act import fused_leaky_relu
+from vtoonify_tpu_torch.ops.upfirdn2d import blur, make_kernel, upsample_2x
+
+BLUR_KERNEL = (1.0, 3.0, 3.0, 1.0)
+
+# (B, 4C, H, W) -> (B, C, 2H, 2W), kernel B4; phase-major unless phase_minor
+depth_to_space2 = kernels.depth_to_space2
+
+
+def _uniform(generator, shape, bound):
+    return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
+
+
+def _param(t):
+    return nn.Parameter(t, requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# elementwise
+
+
+def pixel_norm(x, eps: float = 1e-8):
+    """reference model.py:13-18 (channel dim 1)."""
+    return x * torch.rsqrt(torch.mean(x.square(), dim=1, keepdim=True) + eps)
+
+
+# ---------------------------------------------------------------------------
+# equalized-LR linear / conv
+
+
+class EqualLinear(nn.Module):
+    def __init__(self, in_dim, out_dim, bias=True, bias_init=0.0, lr_mul=1.0,
+                 generator=None):
+        super().__init__()
+        self.weight = _param(torch.randn((out_dim, in_dim), generator=generator)
+                             / lr_mul)
+        self.bias = _param(torch.full((out_dim,), float(bias_init))) if bias else None
+
+
+def equal_linear(p, x, lr_mul: float = 1.0, activation: bool = False):
+    """reference model.py:133-162."""
+    scale = (1.0 / math.sqrt(p.weight.shape[1])) * lr_mul
+    out = x @ (p.weight * scale).to(x.dtype).t()
+    b = p.bias
+    if activation:
+        return fused_leaky_relu(out, None if b is None else b * lr_mul)
+    if b is not None:
+        out = out + (b * lr_mul).to(out.dtype)
+    return out
+
+
+class EqualConv2d(nn.Module):
+    def __init__(self, in_ch, out_ch, ksize, bias=True, generator=None):
+        super().__init__()
+        self.weight = _param(torch.randn((out_ch, in_ch, ksize, ksize),
+                                         generator=generator))
+        self.bias = _param(torch.zeros(out_ch)) if bias else None
+
+
+def equal_conv2d(p, x, stride=1, padding=0, dilation=1):
+    """reference model.py:93-124 (incl. the VToonify dilation modification)."""
+    cout, cin, kh, kw = p.weight.shape
+    scale = 1.0 / math.sqrt(cin * kh * kw)
+    out = conv2d(x, (p.weight * scale).to(x.dtype), stride=stride,
+                 padding=padding, dilation=dilation)
+    if p.bias is not None:
+        out = out + p.bias.to(out.dtype)[None, :, None, None]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# ConvLayer = [Blur?] -> EqualConv2d -> [FusedLeakyReLU?]
+# (reference model.py:593-637)
+
+
+class ConvLayer(nn.Module):
+    def __init__(self, in_ch, out_ch, ksize, bias=True, activate=True,
+                 generator=None):
+        super().__init__()
+        self.conv = EqualConv2d(in_ch, out_ch, ksize, bias=bias and not activate,
+                                generator=generator)
+        self.act_bias = _param(torch.zeros(out_ch)) if activate and bias else None
+
+
+def conv_layer(p, x, ksize, downsample=False, activate=True, dilation=1,
+               blur_kernel: Sequence[float] = BLUR_KERNEL):
+    if downsample:
+        pd = (len(blur_kernel) - 2) + (ksize - 1)
+        x = blur(x, make_kernel(blur_kernel), pad=((pd + 1) // 2, pd // 2))
+        out = equal_conv2d(p.conv, x, stride=2, padding=0)
+    else:
+        out = equal_conv2d(p.conv, x, stride=1, padding=ksize // 2 + dilation - 1,
+                           dilation=dilation)
+    if activate:
+        out = fused_leaky_relu(out, p.act_bias)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# modulated conv
+
+
+class ModulatedConv2d(nn.Module):
+    def __init__(self, in_ch, out_ch, ksize, style_dim, generator=None):
+        super().__init__()
+        self.weight = _param(torch.randn((out_ch, in_ch, ksize, ksize),
+                                         generator=generator))
+        self.modulation = EqualLinear(style_dim, in_ch, bias_init=1.0,
+                                      generator=generator)
+
+
+def _compose_upsample_kernel(w_scaled, blur_kernel):
+    """Fold the x2-upsample blur into the transposed-conv kernel.
+
+    conv_transpose(stride 2, k=3) -> Blur (4-tap, x4 gain) is linear, so it
+    equals ONE 6-tap kernel on the zero-stuffed input:
+    c = conv_full(flip(W), 4 * blur2d). w_scaled: (3, 3, cin, cout) HWIO;
+    returns (6, 6, cin, cout)."""
+    kh, kw = w_scaled.shape[:2]
+    g = torch.flip(w_scaled, (0, 1))
+    bk1 = make_kernel(blur_kernel)
+    bk = torch.outer(bk1, bk1) * 4.0
+    kt = bk.shape[0]
+    taps = torch.zeros((kh, kw, kh + kt - 1, kw + kt - 1))
+    for a in range(kh):
+        for b in range(kw):
+            taps[a, b, a:a + kt, b:b + kt] = bk
+    return torch.einsum("abio,abpq->pqio", g, taps.to(g))
+
+
+def _fused_upsample_weight(w_scaled, blur_kernel):
+    """(3, 3, cin, cout) HWIO -> the (3, 3, cin, 4*cout) polyphase weight of
+    the x2 up conv at INPUT resolution, phase-MINOR packing (output channel
+    o*4 + a*2 + b holds output pixel (2u+a, 2v+b) of channel o)."""
+    c = _compose_upsample_kernel(w_scaled, blur_kernel)
+    phases = [c[1::2, 1::2], c[1::2, 0::2], c[0::2, 1::2], c[0::2, 0::2]]
+    cin, cout = c.shape[2], c.shape[3]
+    return torch.stack(phases, dim=-1).reshape(3, 3, cin, 4 * cout)
+
+
+def modulated_conv2d(p, x, style, demodulate=True, upsample=False,
+                     act_bias=None, blur_kernel: Sequence[float] = BLUR_KERNEL,
+                     eps: float = 1e-8):
+    """reference model.py:170-306, scale-activations formulation, with the
+    JAX package's shared-style weight fold (style batch 1, frame batch > 1)
+    and polyphase x2 up conv; downsampling is not ported. `act_bias` fuses
+    styled_conv's bias + leaky-ReLU into the 3x3 conv's epilogue."""
+    w = p.weight
+    cout, cin, kh, kw = w.shape
+    scale = 1.0 / math.sqrt(cin * kh * kw)
+    s = equal_linear(p.modulation, style)  # (B, cin)
+    d = None
+    if demodulate:
+        # d_b,o = rsqrt(sum_i s_bi^2 * (scale^2 * sum_hw W_oihw^2) + eps)
+        w2 = (scale * scale) * w.square().sum(dim=(2, 3)).t()  # (cin, cout)
+        d = torch.rsqrt(s.float().square() @ w2.float() + eps)  # f32
+
+    # shared-style fold (one style code for a batch of frames): modulation
+    # and demodulation go into the kernel, not the activations
+    fold = s.shape[0] == 1 and x.shape[0] != 1
+    if fold:
+        wf = (w * scale) * s[0].float()[None, :, None, None]
+        if d is not None:
+            wf = wf * d[0][:, None, None, None]
+        wsc, s_x, d_x = wf.to(x.dtype), None, None
+    else:
+        wsc = (w * scale).to(x.dtype)
+        s_x = s.to(x.dtype).contiguous()
+        d_x = None if d is None else d.to(x.dtype).contiguous()
+    bias = None if act_bias is None else act_bias.to(x.dtype).contiguous()
+
+    if kh == 1 and not upsample and bias is None:
+        # ToRGB's 1x1 conv: an XLA conv in the JAX package, plain torch here
+        out = conv2d(x if s_x is None else x * s_x[:, :, None, None], wsc)
+        return out if d_x is None else out * d_x[:, :, None, None]
+    if kh != 3 or (upsample and len(blur_kernel) != 4):
+        raise NotImplementedError("modulated conv: only 3x3 (plain or x2 "
+                                  "polyphase up with a 4-tap blur) and 1x1")
+    w_hwio = wsc.permute(2, 3, 1, 0)
+    x = x.contiguous()
+    if not upsample:
+        return kernels.modconv3x3(x, w_hwio.contiguous(), s_x, d_x, bias)
+    k_cat = _fused_upsample_weight(w_hwio, blur_kernel).contiguous()
+    # per-output-channel epilogue operands repeat per phase (o*4 + phase)
+    d4 = None if d_x is None else d_x.repeat_interleave(4, dim=1)
+    b4 = None if bias is None else bias.repeat_interleave(4)
+    y = kernels.modconv3x3(x, k_cat, s_x, d4, b4)
+    return depth_to_space2(y, phase_minor=True)
+
+
+class NoiseInjection(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.weight = _param(torch.zeros(()))
+
+
+class StyledConv(nn.Module):
+    def __init__(self, in_ch, out_ch, ksize, style_dim, generator=None):
+        super().__init__()
+        self.conv = ModulatedConv2d(in_ch, out_ch, ksize, style_dim,
+                                    generator=generator)
+        self.noise = NoiseInjection()
+        self.act_bias = _param(torch.zeros(out_ch))
+
+
+def styled_conv(p, x, style, noise=None, upsample=False, demodulate=True):
+    """reference model.py:336-370. VToonify runs with zero noise
+    (vtoonify.py:266-267); explicit noise is not ported."""
+    if noise is not None:
+        raise NotImplementedError("styled_conv: noise injection is not ported")
+    return modulated_conv2d(p.conv, x, style, demodulate=demodulate,
+                            upsample=upsample, act_bias=p.act_bias)
+
+
+class ToRGB(nn.Module):
+    def __init__(self, in_ch, style_dim, generator=None):
+        super().__init__()
+        self.conv = ModulatedConv2d(in_ch, 3, 1, style_dim, generator=generator)
+        self.bias = _param(torch.zeros((1, 3, 1, 1)))
+
+
+def to_rgb(p, x, style, skip=None, blur_kernel: Sequence[float] = BLUR_KERNEL):
+    """reference model.py:373-392 (1x1 mod conv without demodulation)."""
+    out = modulated_conv2d(p.conv, x, style, demodulate=False)
+    out = out + p.bias.to(out.dtype)
+    if skip is not None:
+        out = out + upsample_2x(skip.contiguous(), make_kernel(blur_kernel))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# plain torch-style layers (VToonify encoder / BiSeNet)
+
+
+class Conv2dTorch(nn.Module):
+    """nn.Conv2d default init: kaiming_uniform(a=sqrt(5)) + uniform bias."""
+
+    def __init__(self, in_ch, out_ch, ksize, bias=True, generator=None):
+        super().__init__()
+        fan_in = in_ch * ksize * ksize
+        self.weight = _param(_uniform(generator, (out_ch, in_ch, ksize, ksize),
+                                      math.sqrt(6.0 / ((1 + 5.0) * fan_in))))
+        self.bias = (_param(_uniform(generator, (out_ch,), 1.0 / math.sqrt(fan_in)))
+                     if bias else None)
+
+
+def conv2d_torch(p, x, stride=1, padding=0, dilation=1, groups=1):
+    out = conv2d(x, p.weight.to(x.dtype), stride=stride, padding=padding,
+                 dilation=dilation, groups=groups)
+    if p.bias is not None:
+        out = out + p.bias.to(out.dtype)[None, :, None, None]
+    return out
+
+
+def conv2d_torch_cat2(p, x1, x2, padding=0):
+    """conv2d_torch(p, cat([x1, x2], channels)) — the JAX package splits the
+    contraction per operand for GSPMD; one merged weight here."""
+    return conv2d_torch(p, torch.cat([x1, x2], dim=1), padding=padding)
+
+
+class LinearTorch(nn.Module):
+    def __init__(self, in_dim, out_dim, bias=True, generator=None):
+        super().__init__()
+        bound = 1.0 / math.sqrt(in_dim)
+        self.weight = _param(_uniform(generator, (out_dim, in_dim),
+                                      math.sqrt(6.0 / ((1 + 5.0) * in_dim))))
+        self.bias = _param(_uniform(generator, (out_dim,), bound)) if bias else None
+
+
+def linear_torch(p, x):
+    out = x @ p.weight.to(x.dtype).t()
+    if p.bias is not None:
+        out = out + p.bias.to(out.dtype)
+    return out
+
+
+def instance_norm_2d(x, eps: float = 1e-5):
+    """nn.InstanceNorm2d(affine=False) — per (N, C) spatial stats."""
+    mean = torch.mean(x, dim=(2, 3), keepdim=True)
+    var = torch.var(x, dim=(2, 3), keepdim=True, unbiased=False)
+    return (x - mean) * torch.rsqrt(var + eps)
+
+
+class BatchNorm2d(nn.Module):
+    def __init__(self, ch):
+        super().__init__()
+        self.weight = _param(torch.ones(ch))
+        self.bias = _param(torch.zeros(ch))
+        self.register_buffer("running_mean", torch.zeros(ch))
+        self.register_buffer("running_var", torch.ones(ch))
+
+
+def batch_norm_2d(p, x, eps: float = 1e-5):
+    """nn.BatchNorm2d in eval mode (running stats)."""
+    inv = torch.rsqrt(p.running_var + eps) * p.weight
+    shift = p.bias - p.running_mean * inv
+    return (x * inv.to(x.dtype)[None, :, None, None]
+            + shift.to(x.dtype)[None, :, None, None])
+
+
+# ---------------------------------------------------------------------------
+# AdaIN + ModRes (reference model/dualstylegan.py:6-45)
+
+
+class AdaptiveInstanceNorm(nn.Module):
+    def __init__(self, fin, style_dim=512, generator=None):
+        super().__init__()
+        self.style = LinearTorch(style_dim, fin * 2, generator=generator)
+        with torch.no_grad():
+            self.style.bias[:fin] = 1.0
+            self.style.bias[fin:] = 0.0
+
+
+def adaptive_instance_norm(p, x, style):
+    fin = x.shape[1]
+    st = linear_torch(p.style, style)  # (B, 2*fin)
+    return (st[:, :fin, None, None] * instance_norm_2d(x)
+            + st[:, fin:, None, None])
+
+
+class AdaResBlock(nn.Module):
+    def __init__(self, fin, style_dim=512, generator=None):
+        super().__init__()
+        self.conv1 = ConvLayer(fin, fin, 3, generator=generator)
+        self.conv2 = ConvLayer(fin, fin, 3, generator=generator)
+        self.norm1 = AdaptiveInstanceNorm(fin, style_dim, generator=generator)
+        self.norm2 = AdaptiveInstanceNorm(fin, style_dim, generator=generator)
+        # near-zero conv init -> negligible residual at start
+        # (dualstylegan.py:35-36)
+        with torch.no_grad():
+            self.conv1.conv.weight.mul_(0.01)
+            self.conv2.conv.weight.mul_(0.01)
+
+
+def ada_res_block(p, x, style, w=1.0, dilation=1):
+    """reference dualstylegan.py:24-45. The weight `w` (the style degree)
+    is cast to the activation dtype so a bf16 graph stays bf16."""
+    if isinstance(w, (int, float)) and w == 0:
+        return x
+    out = conv_layer(p.conv1, adaptive_instance_norm(p.norm1, x, style), 3,
+                     dilation=dilation)
+    out = conv_layer(p.conv2, adaptive_instance_norm(p.norm2, out, style), 3,
+                     dilation=dilation)
+    return out * torch.as_tensor(w, dtype=out.dtype, device=out.device) + x

@@ -1,0 +1,75 @@
+"""upfirdn2d — upsample -> FIR filter -> downsample, per channel (NCHW).
+
+Port of vtoonify_tpu/ops/upfirdn2d.py. Semantics (reference
+model/stylegan/op_cpu/upfirdn2d.py):
+
+    1. zero-stuff each pixel with (up-1) zeros after it
+    2. pad with (pad0, pad1) per axis; NEGATIVE pads crop
+    3. true 2-D convolution with `kernel`
+    4. keep every `down`-th sample
+
+    out = (in * up + pad0 + pad1 - k + down) // down          per axis
+
+A 1-D kernel is separable and applied along both axes, as in the JAX package.
+The work runs in kernel B3 (`ops.kernels.upfirdn2d`, one pass over the 2-D
+outer-product taps).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from vtoonify_tpu_torch.ops import kernels
+
+
+def make_kernel(k, gain: float = 1.0) -> torch.Tensor:
+    """Normalized FIR kernel (float32). 1-D input stays 1-D (separable);
+    normalization always uses the 2-D sum so gains match the reference."""
+    k = np.asarray(k, dtype=np.float32)
+    k = k / k.sum()
+    if k.ndim == 1:
+        return torch.from_numpy(k * np.float32(np.sqrt(gain)))
+    return torch.from_numpy(k * np.float32(gain))
+
+
+def _pairify(v):
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+
+
+def _pad4(pad):
+    pad = tuple(pad)
+    if len(pad) == 2:
+        return (pad[0], pad[1], pad[0], pad[1])
+    return pad  # (x0, x1, y0, y1)
+
+
+def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
+    """Apply up-FIR-down resampling per channel.
+
+    Args:
+      x: (N, C, H, W) NCHW input.
+      kernel: (kh, kw) 2-D FIR kernel, or (k,) 1-D separable kernel.
+      up / down: int or (x, y) pair (reference argument order).
+      pad: (pad0, pad1) applied to both axes, or (x0, x1, y0, y1).
+    """
+    kernel = torch.as_tensor(kernel, dtype=torch.float32)
+    if kernel.ndim == 1:
+        kernel = torch.outer(kernel, kernel)
+    return kernels.upfirdn2d(x, kernel, up=_pairify(up), down=_pairify(down),
+                             pad=_pad4(pad))
+
+
+def upsample_2x(x, kernel_1d):
+    """Reference Upsample module (model.py:32-50): x4 gain, factor-2 pads."""
+    k = kernel_1d * 2.0  # sqrt(factor**2) per separable axis
+    p = k.shape[0] - 2
+    return upfirdn2d(x, k, up=2, down=1, pad=((p + 1) // 2 + 1, p // 2))
+
+
+def blur(x, kernel_1d, pad, upsample_factor: int = 1):
+    """Reference Blur module (model.py:74-90)."""
+    k = kernel_1d
+    if upsample_factor > 1:
+        k = k * float(upsample_factor)  # sqrt(factor**2) per separable axis
+    return upfirdn2d(x, k, up=1, down=1, pad=pad)
