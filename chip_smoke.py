@@ -2,16 +2,26 @@
 
     python3 chip_smoke.py
 
-Builds the port's four hand-written kernels from vtoonify_tpu_torch/csrc
-with nvcc (sm_90a), checks each against its plain PyTorch version at every
-shape the main path gives it, then drives the main path — the flagship
-VToonify-D frame graph (BiSeNet -> encoder -> fusion -> DualStyleGAN,
-256 px -> 1024 px) behind ToonifyPipeline.process_batch — with random
-weights from a seeded torch.Generator, checks its output against the same
-modules run on the CPU, and times it. Each phase prints one JSON object on a
-line of its own; the line before the last holds the per-kernel summary, and
-the last line is {"ok": true, "device": {...}}. Any failure exits non-zero
-before that line. Needs torch with CUDA and nvcc; never imports JAX.
+Builds the port's five hand-written kernels from vtoonify_tpu_torch/csrc
+with nvcc (sm_90a, one nvcc per source, in parallel), checks each against its
+plain PyTorch version at every shape the main paths give it (forward in
+float32 and bfloat16, backward in float32), then drives the two main paths
+with random weights from a seeded torch.Generator:
+
+* serve: the flagship VToonify-D frame graph (BiSeNet -> encoder -> fusion ->
+  DualStyleGAN, 256 px -> 1024 px) behind ToonifyPipeline.process_batch,
+  checked against the same modules on the CPU in float32, and timed;
+* train: the flagship VToonify-D stage-2 training step (train_d_step:
+  teacher synthesis with the augment, D step, G step with LPIPS and the
+  temporal crop, EMA) at batch 2 in bfloat16 and float32, timed and
+  profiled; and the trainer's --tiny configuration for one step on the card
+  and on the CPU from the same modules and draws, compared.
+
+Each phase prints one JSON object on a line of its own with its wall
+seconds; the line before the last holds the per-kernel summary, and the last
+line is {"ok": true, "device": {...}}. Any failure exits non-zero before
+that line. Needs torch with CUDA and nvcc; never imports JAX. Long output
+goes to chiprun_out/chip_smoke/.
 """
 
 from __future__ import annotations
@@ -21,23 +31,50 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SEED = 0
+OUT_DIR = Path("chiprun_out") / "chip_smoke"
 LSB_F32_MAX, LSB_F32_MEAN = 2, 0.05  # card vs CPU, float32, uint8 output
 # kernel vs plain version, as a fraction of max(1, max |plain|): float32
 # differs only in the order of float32 sums (TF32 off); bf16 rounds once in
-# the kernel and after each op in the plain version (2^-8 relative each)
+# the kernel and after each op in the plain version (2^-8 relative each).
+# B5 in float32 also differs in coordinate rounding: the plain version goes
+# through the normalized grid, ((gx + 1) W - 1) / 2, the kernel takes the
+# pixel coefficients; at 4120 px two or three float32 roundings of a
+# coordinate below 8192 are at most ~1.5e-3 px apart, and a [-1, 1] image's
+# neighbours differ by at most 2, so 3e-3 bounds the value difference.
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+TOL_WARP_F32 = 3e-3
+TOL_GRAD = 1e-4  # backward: the same plain ops on both sides (only the
+# forward values the Functions save may differ, by TOL)
+# card vs CPU train step (float32, TF32 off): metrics to 2e-3 relative
+# (float32 sums ordered differently through D, LPIPS and three student
+# forwards); gradients to 1e-3 in relative L2 norm; Adam's first update
+# (~ +-lr per element) compared as tests/test_torch_train_step.py does, on
+# the elements whose |g| is above the noise floor (at least 5% of them with
+# these random weights; most gradients are below 100 eps = 1e-6)
+STEP_RTOL = 2e-3
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM (data sheet)
+PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
+              "float32": 67e12}    # float32 outside the tensor cores
 
 # main-path shapes, flagship VToonifyConfig() at 256 px in
 CONV3X3 = [(64, 512, 512), (128, 256, 256), (256, 128, 128), (512, 64, 64),
            (1024, 32, 32)]                         # (size, Cin, Cout)
 UPCONV = [(32, 512, 512), (64, 512, 256), (128, 256, 128), (256, 128, 64),
           (512, 64, 32)]                           # (input size, Cin, Cout)
+TEACHER_LOW = [(4, False), (4, True), (8, False), (8, True), (16, False),
+               (16, True), (32, False)]            # (input size, up conv?)
 RGB_SKIP = [32, 64, 128, 256, 512]                 # (B, 3, r, r) -> 2r
+D_BLUR = [(256, 128), (128, 256), (64, 512), (32, 512), (16, 512), (8, 512)]
+SYNTH_DOWN = [(3, 1024), (3, 512), (19, 512), (22, 896), (22, 448)]
+AUG = 4120                                         # x2 augment plane (1024 px)
 SOURCES = {
     "modconv3x3": ("vtoonify_tpu_torch/csrc/modconv3x3.cu",
                    "vtoonify_tpu/ops/pallas_kernels.py:214"),
@@ -47,6 +84,15 @@ SOURCES = {
                   "vtoonify_tpu/ops/pallas_kernels.py:109"),
     "depth_to_space2": ("vtoonify_tpu_torch/csrc/d2s2.cu",
                         "vtoonify_tpu/ops/pallas_kernels.py:600"),
+    "affine_warp": ("vtoonify_tpu_torch/csrc/affine_warp.cu",
+                    "vtoonify_tpu/ops/pallas_kernels.py:470"),
+}
+SUMMARY_SET = {  # the shapes each kernel's summary record sums over (bf16)
+    "modconv3x3": "batch-1 serving convs, raw folded form (library F.conv2d)",
+    "fused_leaky_relu": "batch-1 serving shapes",
+    "upfirdn2d": "discriminator blur shapes, batch 2 (library depthwise F.conv2d)",
+    "depth_to_space2": "batch-1 serving up-conv interleaves (library F.pixel_shuffle)",
+    "affine_warp": "flagship augment warp, p=1 affine (library F.grid_sample, float32)",
 }
 
 
@@ -75,103 +121,283 @@ def cuda_ms(fn, reps):
     return float(np.median(times))
 
 
+def bound_ms(nbytes, flops, dtype):
+    """The least time the card could take: max(bytes / HBM rate, FLOPs /
+    peak for the dtype), and which of the two bounds it."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
 # ---------------------------------------------------------------------------
-# phase 2: each kernel against its plain version at the main-path shapes
+# kernels against their plain versions
 
 
-def kernel_cases(rng):
-    """(kernel name, shape label, batch-1 per-frame?, make(dtype) -> (kernel
-    fn, plain fn)) for every main-path shape."""
+class Case:
+    """One kernel call at one main-path shape. make(dtype) -> (kernel fn,
+    plain fn, library fn or None, (bytes, flops) the call must move/do)."""
+
+    def __init__(self, name, label, make, summary=False, reps=10):
+        self.name, self.label, self.make = name, label, make
+        self.summary, self.reps = summary, reps
+
+
+def kernel_cases(rng, dev):
     from vtoonify_tpu_torch.ops import kernels as K
     from vtoonify_tpu_torch.ops.upfirdn2d import make_kernel
+    from vtoonify_tpu_torch.train import augment as A
 
     def t(*shape, scale=1.0, shift=0.0):
         return torch.from_numpy((rng.randn(*shape) * scale + shift).astype(np.float32))
 
+    def nbytes(dt, *ts):
+        es = torch.finfo(dt).bits // 8
+        return es * sum(x.numel() for x in ts if x is not None)
+
     cases = []
 
-    def conv_case(label, b, size, cin, cout, modulated):
+    def conv_case(label, b, size, cin, cout, modulated, act, summary=False):
         x = t(b, cin, size, size)
         w = t(3, 3, cin, cout, scale=1.0 / np.sqrt(9 * cin))
         s = t(b, cin, scale=0.5, shift=1.0) if modulated else None
         d = t(b, cout, scale=0.1, shift=1.0) if modulated else None
-        bias = t(cout, scale=0.1)
+        bias = t(cout, scale=0.1) if act else None
 
-        def make(dt, dev):
+        def make(dt):
             a = [None if v is None else v.to(dev, dt) for v in (x, w, s, d, bias)]
-            return lambda: K.modconv3x3(*a), lambda: K.modconv3x3_plain(*a)
-        cases.append(("modconv3x3", label, b == 1, make))
+            lib = None
+            if not (modulated or act):  # raw folded: one F.conv2d
+                w_oihw = a[1].permute(3, 2, 0, 1).contiguous()
+                lib = lambda: F.conv2d(a[0], w_oihw, padding=1)  # noqa: E731
+            work = (nbytes(dt, *a) + nbytes(dt, a[0]) * cout // cin,
+                    2 * 9 * cin * cout * size * size * b)
+            return lambda: K.modconv3x3(*a), lambda: K.modconv3x3_plain(*a), lib, work
+        cases.append(Case("modconv3x3", label, make, summary))
 
     for size, cin, cout in CONV3X3:
-        conv_case(f"conv {size}^2 {cin}->{cout}", 1, size, cin, cout, True)
-        conv_case(f"conv {size}^2 {cin}->{cout} folded b4", 4, size, cin, cout, False)
+        conv_case(f"conv {size}^2 {cin}->{cout}", 1, size, cin, cout, True, True)
+        conv_case(f"conv {size}^2 {cin}->{cout} folded b4", 4, size, cin, cout,
+                  False, True)
+        conv_case(f"conv {size}^2 {cin}->{cout} raw folded", 1, size, cin, cout,
+                  False, False, summary=True)
+        conv_case(f"teacher conv {size}^2 {cin}->{cout} raw b2", 2, size, cin,
+                  cout, True, False)
     for size, cin, cout in UPCONV:
-        conv_case(f"upconv {size}^2 {cin}->4*{cout}", 1, size, cin, 4 * cout, True)
+        conv_case(f"upconv {size}^2 {cin}->4*{cout}", 1, size, cin, 4 * cout,
+                  True, True)
         conv_case(f"upconv {size}^2 {cin}->4*{cout} folded b4", 4, size, cin,
-                  4 * cout, False)
+                  4 * cout, False, True)
+        conv_case(f"upconv {size}^2 {cin}->4*{cout} raw folded", 1, size, cin,
+                  4 * cout, False, False, summary=True)
+        conv_case(f"teacher upconv {size}^2 {cin}->4*{cout} raw b2", 2, size,
+                  cin, 4 * cout, True, False)
+    for size, upc in TEACHER_LOW:
+        conv_case(f"teacher {'upconv' if upc else 'conv'} {size}^2 512->"
+                  f"{'4*' if upc else ''}512 raw b2", 2, size, 512,
+                  2048 if upc else 512, True, False)
 
-    for b, shape in [(1, (1, 512, 32, 32)), (4, (4, 512, 32, 32)), (1, (18, 512))]:
+    for shape, summary in [((1, 512, 32, 32), True), ((4, 512, 32, 32), False),
+                           ((18, 512), True), ((2, 512, 64, 64), False)]:
         x, bias = t(*shape), t(shape[1], scale=0.1)
 
-        def make(dt, dev, x=x, bias=bias):
+        def make(dt, x=x, bias=bias):
             a, c = x.to(dev, dt), bias.to(dev, dt)
             return (lambda: K.fused_leaky_relu(a, c),
-                    lambda: K.fused_leaky_relu_plain(a, c))
-        cases.append(("fused_leaky_relu", f"{tuple(shape)}", b == 1, make))
+                    lambda: K.fused_leaky_relu_plain(a, c), None,
+                    (2 * nbytes(dt, a) + nbytes(dt, c), 4 * a.numel()))
+        cases.append(Case("fused_leaky_relu", f"{tuple(shape)}", make, summary))
 
-    k1 = make_kernel([1, 3, 3, 1]) * 2.0
-    k2 = torch.outer(k1, k1)
+    def fir_case(label, shape, k2d, up, down, pad, summary=False, reps=10):
+        x = t(*shape)
+
+        def make(dt, x=x):
+            a = x.to(dev, dt)
+            args = (k2d, up, down, pad)
+            kh, kw = k2d.shape
+            oh, ow = K._upfirdn2d_out_hw(shape[2], shape[3], kh, kw, up, down, pad)
+            out_n = shape[0] * shape[1] * oh * ow
+            lib = None
+            if up == down == (1, 1) and pad[0] == pad[1] == pad[2] == pad[3]:
+                wk = torch.flip(k2d, (0, 1)).to(dev, dt).expand(shape[1], 1, kh, kw)
+                wk = wk.contiguous()
+                lib = lambda: F.conv2d(a, wk, padding=pad[0], groups=shape[1])  # noqa: E731
+            work = (nbytes(dt, a) + out_n * (torch.finfo(dt).bits // 8),
+                    2 * out_n * kh * kw / (up[0] * up[1]))
+            return (lambda: K.upfirdn2d(a, *args), lambda: K.upfirdn2d_plain(a, *args),
+                    lib, work)
+        cases.append(Case("upfirdn2d", label, make, summary, reps))
+
+    k1 = make_kernel([1, 3, 3, 1])
+    k_up = torch.outer(k1 * 2.0, k1 * 2.0)
+    k_blur = torch.outer(k1, k1)
     for b in (1, 4):
         for r in RGB_SKIP:
-            x = t(b, 3, r, r)
-
-            def make(dt, dev, x=x):
-                a = x.to(dev, dt)
-                args = (k2, (2, 2), (1, 1), (2, 1, 2, 1))
-                return (lambda: K.upfirdn2d(a, *args),
-                        lambda: K.upfirdn2d_plain(a, *args))
-            cases.append(("upfirdn2d", f"upsample_2x ({b},3,{r},{r})", b == 1, make))
+            fir_case(f"upsample_2x ({b},3,{r},{r})", (b, 3, r, r), k_up, (2, 2),
+                     (1, 1), (2, 1, 2, 1))
+    for r, c in D_BLUR:
+        fir_case(f"D blur ({2},{c},{r},{r}) pad 2", (2, c, r, r), k_blur, (1, 1),
+                 (1, 1), (2, 2, 2, 2), summary=True)
+        fir_case(f"D blur ({2},{c},{r},{r}) pad 1", (2, c, r, r), k_blur, (1, 1),
+                 (1, 1), (1, 1, 1, 1), summary=True)
+    for c, r in SYNTH_DOWN:
+        fir_case(f"synth.down ({2},{c},{r},{r})", (2, c, r, r), k_blur, (1, 1),
+                 (2, 2), (1, 1, 1, 1))
+    sym6 = A.SYM6
+    half = AUG // 2
+    fir_case(f"SYM6 x-up (2,6,{half},{half})", (2, 6, half, half), sym6[None, :],
+             (2, 1), (1, 1), (6, 5, 0, 0), reps=5)
+    fir_case(f"SYM6 y-up (2,6,{half},{AUG})", (2, 6, half, AUG), sym6[:, None],
+             (1, 2), (1, 1), (0, 0, 6, 5), reps=5)
+    fir_case(f"SYM6 x-down (2,6,{half},{half})", (2, 6, half, half),
+             sym6.flip(0)[None, :], (1, 1), (2, 1), (-1, -1, 0, 0), reps=5)
+    fir_case(f"SYM6 y-down (2,6,{half},1024)", (2, 6, half, 1024),
+             sym6.flip(0)[:, None], (1, 1), (1, 2), (0, 0, -1, -1), reps=5)
 
     for b in (1, 4):
         for size, _, cout in UPCONV:
             x = t(b, 4 * cout, size, size)
 
-            def make(dt, dev, x=x):
+            def make(dt, x=x):
                 a = x.to(dev, dt)
                 return (lambda: K.depth_to_space2(a, True),
-                        lambda: K.depth_to_space2_plain(a, True))
-            cases.append(("depth_to_space2", f"({b},{4 * cout},{size},{size}) "
-                          "phase-minor", b == 1, make))
+                        lambda: K.depth_to_space2_plain(a, True),
+                        lambda: F.pixel_shuffle(a, 2), (2 * nbytes(dt, a), 0))
+            cases.append(Case("depth_to_space2", f"({b},{4 * cout},{size},{size}) "
+                              "phase-minor", make, b == 1))
+
+    # B5 at the flagship augment: (2, 6, 4120, 4120) -> (2, 6, 2060, 2060)
+    gen = torch.Generator().manual_seed(SEED)
+    img = torch.tanh(torch.randn((2, 6, AUG, AUG), generator=gen))
+    eye = torch.eye(3).repeat(2, 1, 1)
+    drawn = torch.linalg.inv(A.sample_affine(gen, 1.0, 2, 1024, 1024))
+    for label, G_inv, summary in (("identity affine", eye, False),
+                                  ("sampled p=1 affine", drawn, True)):
+        theta, out_hw = A.warp_theta(G_inv, (1024, 1024), (AUG, AUG))
+        coef = A._pixel_affine_coefs(theta, out_hw, (AUG, AUG)).contiguous()
+        grid = A._affine_grid(theta, out_hw)
+
+        def make(dt, coef=coef, grid=grid, out_hw=out_hw):
+            a, c, g = img.to(dev, dt), coef.to(dev), grid.to(dev)
+            a32 = img.to(dev)
+            # bytes: the input pixels the sampling reaches (nonzero corner
+            # weights) once, plus the output; ~12 FLOPs/pixel + 8/value
+            with torch.enable_grad():
+                leaf = a32[:, :1].clone().requires_grad_()
+                touched = torch.autograd.grad(
+                    K.affine_warp_plain(leaf, c, out_hw).sum(), leaf)[0]
+            n_in = int((touched != 0).sum()) * a.shape[1]
+            n_out = a.shape[0] * a.shape[1] * out_hw[0] * out_hw[1]
+            es = torch.finfo(dt).bits // 8
+            work = ((n_in + n_out) * es, a.shape[0] * out_hw[0] * out_hw[1]
+                    * (12 + 8 * a.shape[1]))
+            lib = lambda: F.grid_sample(a32, g, mode="bilinear",  # noqa: E731
+                                        padding_mode="zeros", align_corners=False)
+            return (lambda: K.affine_warp(a, c, out_hw),
+                    lambda: K.affine_warp_plain(a, c, out_hw), lib, work)
+        cases.append(Case("affine_warp", f"(2,6,{AUG},{AUG})->(2,6,{out_hw[0]},"
+                          f"{out_hw[1]}) {label}", make, summary, reps=5))
     return cases
 
 
+def backward_cases(rng, dev):
+    """(kernel, label, kernel fn, plain fn, inputs): each Function's
+    gradients on the card vs torch.autograd through the plain version, at one
+    main-path shape, float32."""
+    from vtoonify_tpu_torch.ops import kernels as K
+    from vtoonify_tpu_torch.ops.upfirdn2d import make_kernel
+    from vtoonify_tpu_torch.train import augment as A
+
+    def t(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy((rng.randn(*shape) * scale + shift).astype(
+            np.float32)).to(dev)
+
+    k1 = make_kernel([1, 3, 3, 1])
+    k_blur = torch.outer(k1, k1)
+    theta, out_hw = A.warp_theta(torch.eye(3).repeat(2, 1, 1), (1024, 1024), (AUG, AUG))
+    theta[:, :, :2] = theta[:, :, :2] * 1.07
+    coef = A._pixel_affine_coefs(theta, out_hw, (AUG, AUG)).to(dev).contiguous()
+    return [
+        ("modconv3x3", "conv 64^2 512->512 modulated + act",
+         K.modconv3x3, K.modconv3x3_plain,
+         (t(1, 512, 64, 64), t(3, 3, 512, 512, scale=1 / 68), t(1, 512, shift=1.0),
+          t(1, 512, scale=0.1, shift=1.0), t(512, scale=0.1))),
+        ("fused_leaky_relu", "(2,512,64,64)", K.fused_leaky_relu,
+         K.fused_leaky_relu_plain, (t(2, 512, 64, 64), t(512))),
+        ("upfirdn2d", "D blur (2,128,256,256) pad 2",
+         lambda x: K.upfirdn2d(x, k_blur, (1, 1), (1, 1), (2, 2, 2, 2)),
+         lambda x: K.upfirdn2d_plain(x, k_blur, (1, 1), (1, 1), (2, 2, 2, 2)),
+         (t(2, 128, 256, 256),)),
+        ("depth_to_space2", "(1,1024,64,64) phase-minor",
+         lambda x: K.depth_to_space2(x, True),
+         lambda x: K.depth_to_space2_plain(x, True), (t(1, 1024, 64, 64),)),
+        ("affine_warp", f"(2,6,{AUG},{AUG}) scaled affine",
+         lambda x: K.affine_warp(x, coef, out_hw),
+         lambda x: K.affine_warp_plain(x, coef, out_hw),
+         (torch.tanh(t(2, 6, AUG, AUG)),)),
+    ]
+
+
 def kernel_phase(dev):
-    summary = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    t0 = time.perf_counter()
+    summary = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                      "bound_ms": 0.0, "library_ms": None, "bytes": 0, "flops": 0}
                for name in SOURCES}
-    for name, label, per_frame, make in kernel_cases(np.random.RandomState(SEED)):
+    records = []
+    for case in kernel_cases(np.random.RandomState(SEED), dev):
         for dtype in ("float32", "bfloat16"):
-            kern, plain = make(getattr(torch, dtype), dev)
+            kern, plain, lib, (nb, fl) = case.make(getattr(torch, dtype))
             got, want = kern().float(), plain().float()
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             scale = max(1.0, want.abs().max().item())
-            rec = {"phase": "kernel", "kernel": name, "shape": label,
-                   "dtype": dtype, "max_abs_err": err, "tol": TOL[dtype] * scale,
-                   "finite": bool(torch.isfinite(got).all())}
-            rec["ms"] = cuda_ms(kern, 10)
-            rec["plain_ms"] = cuda_ms(plain, 10)
-            if per_frame and dtype == "bfloat16":  # the serving dtype
-                summary[name]["ms"] += rec["ms"]
-                summary[name]["plain_ms"] += rec["plain_ms"]
+            tol = (TOL_WARP_F32 if case.name == "affine_warp" and dtype == "float32"
+                   else TOL[dtype]) * scale
+            bms, by = bound_ms(nb, fl, dtype)
+            rec = {"phase": "kernel", "kernel": case.name, "shape": case.label,
+                   "dtype": dtype, "max_abs_err": err, "tol": tol,
+                   "finite": bool(torch.isfinite(got).all()),
+                   "ms": cuda_ms(kern, case.reps), "plain_ms": cuda_ms(plain, case.reps),
+                   "library_ms": None if lib is None else cuda_ms(lib, case.reps),
+                   "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": fl}
+            del got, want
+            records.append(rec)
             emit(rec)
-            check(rec["finite"] and err <= rec["tol"],
-                  f"{name} {label} {dtype}: max|kernel - plain| {err} > {rec['tol']}")
-            summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], err)
+            check(rec["finite"] and err <= tol,
+                  f"{case.name} {case.label} {dtype}: max|kernel - plain| {err} > {tol}")
+            sm = summary[case.name]
+            sm["max_abs_err"] = max(sm["max_abs_err"], err)
+            if case.summary and dtype == "bfloat16":
+                for k in ("ms", "plain_ms", "bound_ms", "bytes", "flops"):
+                    sm[k] += rec[k]
+                if rec["library_ms"] is not None:
+                    sm["library_ms"] = (sm["library_ms"] or 0.0) + rec["library_ms"]
+    for name, sm in summary.items():
+        sm["bound_by"] = bound_ms(sm["bytes"], sm["flops"], "bfloat16")[1]
+
+    for name, label, kern, plain, inputs in backward_cases(np.random.RandomState(1), dev):
+        grads = []
+        for fn in (kern, plain):
+            leaves = [x.detach().clone().requires_grad_() for x in inputs]
+            y = fn(*leaves)
+            g_out = torch.ones_like(y) if y.ndim == 0 else torch.linspace(
+                -1, 1, y.numel(), device=dev).reshape(y.shape)
+            grads.append(torch.autograd.grad(y, leaves, g_out))
+        errs = []
+        for gk, gp in zip(*grads):
+            scale = max(1.0, gp.abs().max().item())
+            errs.append((gk - gp).abs().max().item() / scale)
+        rec = {"phase": "kernel_backward", "kernel": name, "shape": label,
+               "dtype": "float32", "max_rel_err": max(errs), "tol": TOL_GRAD}
+        emit(rec)
+        check(max(errs) <= TOL_GRAD, f"{name} backward {label}: {max(errs)}")
+        summary[name]["backward_max_rel_err"] = max(errs)
+    (OUT_DIR / "kernel_records.json").write_text(json.dumps(records, indent=1))
+    emit({"phase": "kernel_done", "seconds": time.perf_counter() - t0})
     return summary
 
 
 # ---------------------------------------------------------------------------
-# phases 3-6: the flagship pipeline
+# serve: the flagship pipeline
 
 
 def build_modules():
@@ -194,49 +420,26 @@ def build_modules():
     return cfg, vt, parsing
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
-                         "this script needs an NVIDIA GPU")
+def serve_phases(smi):
     from vtoonify_tpu_torch.ops import kernels as K
     from vtoonify_tpu_torch.pipeline.toonify import ToonifyPipeline
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda")
-
-    # phase 1: environment and kernel build
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    built = not K.library_path().exists()
-    t0 = time.perf_counter()
-    lib = K.build()
-    K._library()
-    emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "python": sys.version.split()[0],
-          "device": torch.cuda.get_device_name(0),
-          "kernel_library": str(lib.relative_to(K.BUILD_DIR.parent.parent)),
-          "built_from_source": built,
-          "build_and_load_s": time.perf_counter() - t0})
-
-    # phase 2: kernels vs plain versions
-    summary = kernel_phase(dev)
-
-    # phase 3: the flagship pipeline in bf16 and f32
+    # build: the flagship pipeline in bf16 and f32 (no device argument: the card)
     t0 = time.perf_counter()
     cfg, vt_cpu, parsing_cpu = build_modules()
-    vt_dev = copy.deepcopy(vt_cpu).to(dev)
-    parsing_dev = copy.deepcopy(parsing_cpu).to(dev)
+    vt_dev = copy.deepcopy(vt_cpu)
+    parsing_dev = copy.deepcopy(parsing_cpu)
     pipe_bf16 = ToonifyPipeline(vt_dev, cfg, parsing_dev, dtype=torch.bfloat16)
     pipe_f32 = ToonifyPipeline(vt_dev, cfg, parsing_dev, dtype=torch.float32)
+    check(next(pipe_f32.vt.parameters()).device.type == "cuda",
+          "ToonifyPipeline without a device did not run on the card")
     emit({"phase": "build", "config": "VToonifyConfig() + BiSeNet",
           "params": sum(p.numel() for p in vt_cpu.parameters()),
           "bisenet_params": sum(p.numel() for p in parsing_cpu.parameters()),
           "seconds": time.perf_counter() - t0})
 
-    # phase 4: serve a few requests through process_batch; count launches
+    # serve a few requests through process_batch; count launches
+    t0 = time.perf_counter()
     rng = np.random.RandomState(SEED)
     s_w = rng.randn(1, cfg.n_latent, 512).astype(np.float32)
     frames4 = rng.randint(0, 256, (4, 256, 256, 3)).astype(np.uint8)
@@ -259,31 +462,36 @@ def main():
           "launches": launches,
           "out_std_lsb": out4.float().std().item(),
           "fold_vs_unfold_max_lsb": fold_vs_unfold.max().item(),
-          "fold_vs_unfold_mean_lsb": fold_vs_unfold.float().mean().item()})
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched by the main path")
+          "fold_vs_unfold_mean_lsb": fold_vs_unfold.float().mean().item(),
+          "seconds": time.perf_counter() - t0})
+    for name in ("modconv3x3", "fused_leaky_relu", "upfirdn2d", "depth_to_space2"):
+        check(launches[name] > 0, f"kernel {name} was not launched by the serve path")
     check(out4.float().std().item() > 10, "output image is flat")
     # the two style forms round bf16 at different places; a wrong fold or
     # modulation shows up as tens of LSB, not a fraction of one
     check(fold_vs_unfold.float().mean().item() < 4.0,
           "folded and unfolded style paths disagree")
 
-    # phase 5: float32 card output vs the same modules on the CPU
+    # float32 card output vs the same modules on the CPU
+    t0 = time.perf_counter()
     frame = frames4[:1]
     card = pipe_f32.process_batch(frame, s_w, 0.5).cpu()
-    pipe_cpu = ToonifyPipeline(vt_cpu, cfg, parsing_cpu, dtype=torch.float32)
-    t0 = time.perf_counter()
+    pipe_cpu = ToonifyPipeline(vt_cpu, cfg, parsing_cpu, dtype=torch.float32,
+                               device="cpu")
+    t1 = time.perf_counter()
     host = pipe_cpu.process_batch(frame, s_w, 0.5)
-    cpu_s = time.perf_counter() - t0
+    cpu_s = time.perf_counter() - t1
     diff = (card.int() - host.int()).abs().float()
     emit({"phase": "e2e_f32_vs_cpu", "max_lsb": diff.max().item(),
           "mean_lsb": diff.mean().item(), "bound_max_lsb": LSB_F32_MAX,
           "bound_mean_lsb": LSB_F32_MEAN, "cpu_seconds": cpu_s,
-          "out_std_lsb": host.float().std().item()})
+          "out_std_lsb": host.float().std().item(),
+          "seconds": time.perf_counter() - t0})
     check(diff.max().item() <= LSB_F32_MAX and diff.mean().item() <= LSB_F32_MEAN,
           "float32 card output differs from the CPU plain run beyond the bound")
 
-    # phase 6: timing, bf16, 256 -> 1024, after warm-up
+    # timing, bf16, 256 -> 1024, after warm-up
+    t0 = time.perf_counter()
     for batch, reps in ((1, 20), (16, 5)):
         frames = np.resize(frames4, (batch, 256, 256, 3))
         for _ in range(2):
@@ -291,10 +499,10 @@ def main():
         torch.cuda.synchronize()
         times = []
         for _ in range(reps):
-            t0 = time.perf_counter()
+            t1 = time.perf_counter()
             pipe_bf16.process_batch(frames, s_w, 0.5)
             torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
+            times.append(time.perf_counter() - t1)
         p25, p50, p75 = (float(v) for v in np.percentile(times, [25, 50, 75]))
         emit({"phase": "timing", "batch": batch, "dtype": "bfloat16",
               "in_px": 256, "out_px": 1024, "reps": reps,
@@ -302,12 +510,262 @@ def main():
               "fps": batch / p50, "p25_p75_ms_per_call": [p25 * 1e3, p75 * 1e3],
               "min_max_ms_per_call": [min(times) * 1e3, max(times) * 1e3],
               "nvidia_smi": smi})
+    emit({"phase": "timing_done", "seconds": time.perf_counter() - t0})
+    del pipe_bf16, pipe_f32, pipe_cpu, vt_dev, parsing_dev
+    torch.cuda.empty_cache()
+    return launches
 
+
+# ---------------------------------------------------------------------------
+# train: the stage-2 step
+
+
+def train_setup(cfg, dcfg, tcfg, batch, g):
+    """Random-weight modules (CPU, float32) and the step's frozen inputs, as
+    bench_train.py::bench_full builds them with JAX."""
+    from vtoonify_tpu_torch.models.bisenet import init_bisenet
+    from vtoonify_tpu_torch.models.lpips import init_lpips
+    from vtoonify_tpu_torch.models.psp_encoder import PSPEncoderConfig, init_psp_encoder
+    from vtoonify_tpu_torch.models.vtoonify import init_cond_discriminator, init_vtoonify
+
+    pcfg = PSPEncoderConfig(n_styles=cfg.n_latent)
+    mods = dict(vt=init_vtoonify(cfg, g), parsing=init_bisenet(generator=g),
+                d=init_cond_discriminator(dcfg, g),
+                psp=init_psp_encoder(pcfg, g), lpips=init_lpips(g))
+    n_latent = cfg.n_latent
+    inputs = dict(
+        directions=torch.randn((4, n_latent, 512), generator=g) * 0.1,
+        style=torch.randn((batch, n_latent, 512), generator=g) * 0.3,
+        style_ind=torch.arange(batch) % dcfg.style_num,
+        weights=[0.5] * 7 + [1.0] * (n_latent - 7))
+    return pcfg, mods, inputs
+
+
+def run_step(state, mods, pcfg, inputs, cfg, dcfg, tcfg, jitter, **kw):
+    from vtoonify_tpu_torch.train.steps import split_trainable, train_d_step
+
+    _, frozen = split_trainable(mods["vt"])
+    return train_d_step(
+        state, frozen, mods["parsing"], mods["psp"], pcfg, None, mods["lpips"],
+        cfg, dcfg, tcfg, inputs["directions"], inputs["style"],
+        inputs["style_ind"], 0.5, inputs["weights"], 0.3, 0.5, jitter, **kw)
+
+
+def _flat(module):
+    return torch.cat([p.detach().float().reshape(-1) for p in module.parameters()])
+
+
+def train_phase(smi, compute_dtype, steps):
+    """The flagship stage-2 step at batch 2 (bench_train.py::bench_full's
+    configuration, nothing cut), from init_train_d_state with no device."""
+    from vtoonify_tpu_torch.models.vtoonify import CondDiscriminatorConfig, VToonifyConfig
+    from vtoonify_tpu_torch.ops import kernels as K
+    from vtoonify_tpu_torch.train.steps import TrainDConfig, init_train_d_state
+
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(SEED)
+    cfg = VToonifyConfig()
+    dcfg = CondDiscriminatorConfig(size=256, channel_multiplier=2,
+                                   use_condition=True, style_num=4)
+    tcfg = TrainDConfig(compute_dtype=compute_dtype)
+    batch = 2
+    pcfg, mods, inputs = train_setup(cfg, dcfg, tcfg, batch, g)
+    state = init_train_d_state(mods["vt"], mods["d"], batch, cfg, tcfg)
+    check(state.wc_prev.device.type == "cuda",
+          "init_train_d_state without a device did not run on the card")
+    gen = torch.Generator(device=state.wc_prev.device).manual_seed(SEED)
+    before = {k: _flat(m) for k, m in (("trainable", state.trainable),
+                                       ("d", state.d), ("ema", state.ema))}
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    times, per_step, metrics = [], [], None
+    for i in range(1 + steps):  # 1 warm-up step, then the timed steps
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t1 = time.perf_counter()
+        metrics = run_step(state, mods, pcfg, inputs, cfg, dcfg, tcfg, False,
+                           generator=gen)
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t1)
+        per_step.append(K.launch_counts())
+        vals = {k: float(v) for k, v in metrics.items()}
+        check(all(np.isfinite(v) for v in vals.values()),
+              f"non-finite loss in step {i}: {vals}")
+        for name, n in per_step[-1].items():
+            check(n > 0, f"kernel {name} was not launched by train step {i}")
+    moved = {k: (_flat(m) - before[k]).abs().sum().item()
+             for k, m in (("trainable", state.trainable), ("d", state.d),
+                          ("ema", state.ema))}
+    check(all(v > 0 for v in moved.values()), f"parameters did not move: {moved}")
+    dtype = compute_dtype or "float32"
+    rec = {"phase": f"train_{dtype}", "config": "VToonifyConfig() + "
+           "CondDiscriminatorConfig(256, 2, use_condition, style_num=4) + pSp "
+           "(18 styles) + LPIPS + BiSeNet, TrainDConfig(compute_dtype="
+           f"{compute_dtype!r}) defaults, batch 2",
+           "steps_timed": steps, "s_per_iter": times,
+           "p50_s_per_iter": float(np.median(times)),
+           "min_max_s_per_iter": [min(times), max(times)],
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches_per_step": per_step[1], "metrics": vals, "moved_abs_sum": moved,
+           "setup_seconds": setup_s, "seconds": time.perf_counter() - t0,
+           "nvidia_smi": smi}
+
+    if compute_dtype is not None:  # profile one more step: top device ops
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            run_step(state, mods, pcfg, inputs, cfg, dcfg, tcfg, False, generator=gen)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+
+        key = ("self_device_time_total" if hasattr(prof.key_averages()[0],
+                                                    "self_device_time_total")
+               else "self_cuda_time_total")
+        # device-side events (kernels, memcpy/memset): each counted once
+        evts = sorted((e for e in prof.key_averages()
+                       if str(getattr(e, "device_type", "")).endswith("CUDA")),
+                      key=lambda e: getattr(e, key), reverse=True)
+        busy = sum(getattr(e, key) for e in evts) / 1e6
+        rec["profile"] = {"wall_s": wall, "device_busy_s": busy,
+                          "device_busy_share": busy / wall,
+                          "top_device_ops": [
+                              {"op": e.key[:120], "device_ms": getattr(e, key) / 1e3,
+                               "count": e.count} for e in evts[:15]]}
+        (OUT_DIR / "train_profile.txt").write_text(prof.key_averages().table(
+            sort_by=key, row_limit=60))
+    emit(rec)
+    launches = per_step[1]
+    del state, mods
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_f32_vs_cpu_phase():
+    """The trainer's --tiny configuration, one step at batch 2 on the card
+    and on the CPU from identical modules and one TrainDDraws, float32 with
+    TF32 off."""
+    from vtoonify_tpu_torch.models.vtoonify import CondDiscriminatorConfig, VToonifyConfig
+    from vtoonify_tpu_torch.train.steps import (
+        ADAM_BETA1, ADAM_EPS, TrainDConfig, init_train_d_state, sample_train_d_draws)
+
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(SEED + 1)
+    cfg = VToonifyConfig(in_size=32, out_size=128, channel_multiplier=1,
+                         num_res_layers=2)
+    dcfg = CondDiscriminatorConfig(size=64, channel_multiplier=1,
+                                   use_condition=True, style_num=4)
+    tcfg = TrainDConfig(crop_size=96, lpips_size=64, aug_max_pad=40)
+    lr = tcfg.lr
+    pcfg, mods_cpu, inputs = train_setup(cfg, dcfg, tcfg, 2, g)
+    with torch.no_grad():  # random noise weights and biases: nothing blind
+        gen = mods_cpu["vt"].generator.generator
+        for blk in [gen.conv1, *gen.convs]:
+            blk.noise.weight.fill_(0.1)
+            blk.act_bias.normal_(0.0, 0.3, generator=g)
+    mods_dev = copy.deepcopy(mods_cpu)
+    draws = sample_train_d_draws(g, 2, cfg, tcfg, 4)
+    out = {}
+    for where, mods in (("cuda", mods_dev), ("cpu", mods_cpu)):
+        state = init_train_d_state(mods["vt"], mods["d"], 2, cfg, tcfg,
+                                   device=None if where == "cuda" else "cpu")
+        t1 = time.perf_counter()
+        m = run_step(state, mods, pcfg, inputs, cfg, dcfg, tcfg, True,
+                     draws=draws.to(state.wc_prev.device))
+        torch.cuda.synchronize()
+        grads = {"trainable": torch.cat([
+            (state.g_opt.state[p]["exp_avg"] / (1 - ADAM_BETA1)).reshape(-1).cpu()
+            for p in state.trainable.parameters()]),
+                 "d": torch.cat([
+            (state.d_opt.state[p]["exp_avg"] / (1 - ADAM_BETA1)).reshape(-1).cpu()
+            for p in state.d.parameters()])}
+        new = {"trainable": _flat(state.trainable).cpu(), "d": _flat(state.d).cpu()}
+        out[where] = dict(metrics={k: float(v) for k, v in m.items()}, new=new,
+                          grads=grads, ema=_flat(state.ema).cpu(),
+                          seconds=time.perf_counter() - t1)
+    # the updates: both sides started from the same float32 parameters
+    rec = {"phase": "train_f32_vs_cpu", "config": "--tiny: VToonifyConfig(32 -> "
+           "128 px, channel_multiplier 1, 2 res layers), D 64 px cm 1, crop 96, "
+           "lpips 64, aug_max_pad 40, batch 2, color jitter on",
+           "metrics_cuda": out["cuda"]["metrics"], "metrics_cpu": out["cpu"]["metrics"],
+           "cuda_step_s": out["cuda"]["seconds"], "cpu_step_s": out["cpu"]["seconds"]}
+    for k in out["cuda"]["metrics"]:
+        a, b = out["cuda"]["metrics"][k], out["cpu"]["metrics"][k]
+        check(np.isfinite(a) and abs(a - b) <= STEP_RTOL * abs(b) + 1e-9,
+              f"train step metric {k}: card {a} vs CPU {b}")
+    covered = total = 0
+    for k in ("trainable", "d"):
+        d_card = out["cuda"]["new"][k] - out["cpu"]["new"][k]
+        g = out["cpu"]["grads"][k].abs()
+        err = d_card.abs()  # both updates start from the same parameters
+        check(err.max().item() <= 2 * lr + 1e-7, f"{k}: updates differ by > 2 lr")
+        mask = (g > 1e-3 * g.max()) & (g > 100 * ADAM_EPS)
+        e = err[mask]
+        rec[f"{k}_masked_max_err_over_lr"] = e.max().item() / lr if e.numel() else 0.0
+        rec[f"{k}_masked_frac_over_1e-3_lr"] = (e > 1e-3 * lr).float().mean().item() \
+            if e.numel() else 0.0
+        check(rec[f"{k}_masked_max_err_over_lr"] <= 0.02
+              and rec[f"{k}_masked_frac_over_1e-3_lr"] <= 1e-2,
+              f"{k}: card and CPU updates disagree")
+        covered, total = covered + int(mask.sum()), total + mask.numel()
+        g_card = out["cuda"]["grads"][k]
+        rec[f"{k}_grad_rel_l2"] = ((g_card - out["cpu"]["grads"][k]).norm()
+                                   / out["cpu"]["grads"][k].norm()).item()
+        check(rec[f"{k}_grad_rel_l2"] <= 1e-3, f"{k}: card and CPU gradients differ")
+    ema_err = (out["cuda"]["ema"] - out["cpu"]["ema"]).abs().max().item()
+    rec.update(mask_coverage=covered / total, ema_max_abs_err=ema_err,
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    check(covered > 0.05 * total, "update comparison covers too few elements")
+    check(ema_err <= 1e-6, "EMA differs between card and CPU")
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
+                         "this script needs an NVIDIA GPU")
+    from vtoonify_tpu_torch.ops import kernels as K
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    t_start = time.perf_counter()
+
+    # environment and kernel build
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    built = not K.library_path().exists()
+    t0 = time.perf_counter()
+    lib = K.build()
+    K._library()
+    emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0],
+          "device": torch.cuda.get_device_name(0),
+          "kernel_library": str(lib.relative_to(K.BUILD_DIR.parent.parent)),
+          "built_from_source": built, "build_and_load_s": time.perf_counter() - t0})
+
+    summary = kernel_phase(dev)
+    launches_serve = serve_phases(smi)
+    launches_train = train_phase(smi, "bfloat16", steps=3)
+    train_phase(smi, None, steps=2)
+    train_f32_vs_cpu_phase()
+
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
-         "replaces": SOURCES[name][1], "launches": launches[name],
-         "max_abs_err": summary[name]["max_abs_err"],
-         "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"]}
+         "replaces": SOURCES[name][1],
+         "launches": launches_serve.get(name, 0) + launches_train.get(name, 0),
+         "launches_serve": launches_serve.get(name, 0),
+         "launches_train_step": launches_train.get(name, 0),
+         **{k: summary[name][k] for k in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "backward_max_rel_err")},
+         "summed_over": SUMMARY_SET[name]}
         for name in SOURCES]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,10 @@
 Marked `cuda`; every test skips where torch sees no GPU (decided inside the
 fixture, never at import). The shapes here are the awkward ones the main path
 does not reach: ragged tiles, channel counts off the kernel's tile sizes,
-signed pads, both depth-to-space orders and 1-byte elements. The main-path
-shapes are checked by chip_smoke.py. Run on a machine with an H100 (it has no
+signed pads and 12-tap filters, both depth-to-space orders, 1-byte elements,
+warps of non-square images onto ragged outputs partly outside the image; and
+each autograd Function's backward on the card. The main-path shapes are
+checked by chip_smoke.py. Run on a machine with an H100 (it has no
 JAX, so skip the suite's conftest):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -79,12 +81,17 @@ def test_fused_leaky_relu(dev, dtype, shape, with_bias):
     (4, (1, 1), (1, 1), (2, 1, 2, 1)),    # blur
     (4, (1, 1), (2, 2), (1, 1, 1, 1)),    # downsample_2x
     (3, (2, 1), (1, 2), (-1, 2, 0, -1)),  # per-axis, negative pads
-    (8, (2, 2), (2, 2), (3, 4, 4, 3)),    # widest taps
+    (8, (2, 2), (2, 2), (3, 4, 4, 3)),    # 8 taps
+    (12, (2, 2), (1, 1), (6, 5, -2, 7)),  # widest taps, signed pads
+    ((1, 12), (2, 1), (1, 1), (6, 5, 0, 0)),       # augment SYM6 x-up
+    ((12, 1), (1, 1), (1, 2), (0, 0, -1, -1)),     # augment SYM6 y-down
+    ((12, 5), (1, 2), (2, 1), (-3, -1, 4, -2)),    # mixed, negative pads
 ])
 def test_upfirdn2d(dev, dtype, kt, up, down, pad):
     rng = np.random.RandomState(2)
-    x = _rand(rng, 2, 3, 11, 14).to(dev, dtype)
-    k = torch.from_numpy(rng.rand(kt, kt).astype(np.float32))
+    x = _rand(rng, 2, 3, 19, 22).to(dev, dtype)
+    kt = (kt, kt) if isinstance(kt, int) else kt
+    k = torch.from_numpy(rng.rand(*kt).astype(np.float32))
     _close(kernels.upfirdn2d(x, k, up, down, pad),
            kernels.upfirdn2d_plain(x, k, up, down, pad), dtype)
 
@@ -96,6 +103,71 @@ def test_depth_to_space2(dev, dtype, phase_minor):
     x = (x % 251).to(dtype)
     got = kernels.depth_to_space2(x, phase_minor)
     assert torch.equal(got, kernels.depth_to_space2_plain(x, phase_minor))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,h,w,ho,wo,scale,shift", [
+    (2, 6, 37, 53, 23, 29, 1.3, 0.0),     # ragged output, non-square input
+    (1, 3, 64, 40, 70, 90, 0.6, 0.4),     # affine partly outside the image
+    (3, 1, 17, 17, 5, 300, 4.0, -0.2),    # strong minification, long rows
+])
+def test_affine_warp(dev, dtype, n, c, h, w, ho, wo, scale, shift):
+    """Against the plain version (F.grid_sample on the same affine's grid):
+    [-1, 1] images, so float32 differs by coordinate rounding only (values
+    within 1e-4) and bf16 by one output rounding."""
+    rng = np.random.RandomState(3)
+    img = torch.tanh(_rand(rng, n, c, h, w)).to(dev, dtype)
+    theta = torch.from_numpy(rng.randn(n, 2, 3).astype(np.float32) * 0.2)
+    theta[:, 0, 0] += scale
+    theta[:, 1, 1] += scale
+    theta[:, :, 2] += shift
+    from vtoonify_tpu_torch.train.augment import _pixel_affine_coefs
+
+    coef = _pixel_affine_coefs(theta, (ho, wo), (h, w)).to(dev).contiguous()
+    got = kernels.affine_warp(img, coef, (ho, wo))
+    assert got.shape == (n, c, ho, wo) and got.dtype == dtype
+    _close(got, kernels.affine_warp_plain(img, coef, (ho, wo)), dtype)
+    if shift:
+        assert (got == 0).any() and (got != 0).any()  # some samples outside
+
+
+def _backward_matches(dev, kern, plain, inputs):
+    grads = []
+    for fn in (kern, plain):
+        leaves = [x.detach().clone().requires_grad_() for x in inputs]
+        y = fn(*leaves)
+        g = torch.linspace(-1, 1, y.numel(), device=dev).reshape(y.shape)
+        grads.append(torch.autograd.grad(y, leaves, g))
+    for a, b in zip(*grads):
+        _close(a, b, torch.float32)
+
+
+def test_backward_on_card(dev):
+    """Each autograd Function on CUDA tensors (the kernel forward, the plain
+    backward) vs torch.autograd through the plain version, float32."""
+    rng = np.random.RandomState(4)
+    r = lambda *s, **k: _rand(rng, *s, **k).to(dev)  # noqa: E731
+    k2 = torch.from_numpy(rng.rand(4, 4).astype(np.float32))
+    k12 = torch.from_numpy(rng.rand(1, 12).astype(np.float32))
+    coef = torch.tensor([[1.1, 0.1, -0.4, -0.05, 0.95, 0.7]] * 2, device=dev)
+    _backward_matches(dev, kernels.modconv3x3, kernels.modconv3x3_plain,
+                      (r(2, 5, 9, 13), r(3, 3, 5, 7, scale=0.2), r(2, 5, shift=1.0),
+                       r(2, 7, shift=1.0), r(7)))
+    _backward_matches(dev, kernels.fused_leaky_relu, kernels.fused_leaky_relu_plain,
+                      (r(2, 7, 5, 3), r(7)))
+    for k, up, down, pad in ((k2, (2, 2), (1, 1), (2, 1, 2, 1)),
+                             (k12, (1, 1), (2, 1), (-1, -1, 0, 0))):
+        _backward_matches(
+            dev, lambda x, k=k, u=up, d=down, p=pad: kernels.upfirdn2d(x, k, u, d, p),
+            lambda x, k=k, u=up, d=down, p=pad: kernels.upfirdn2d_plain(x, k, u, d, p),
+            (r(2, 3, 17, 19),))
+    for pm in (False, True):
+        _backward_matches(dev, lambda x, pm=pm: kernels.depth_to_space2(x, pm),
+                          lambda x, pm=pm: kernels.depth_to_space2_plain(x, pm),
+                          (r(2, 12, 5, 7),))
+    _backward_matches(dev, lambda x: kernels.affine_warp(x, coef, (11, 13)),
+                      lambda x: kernels.affine_warp_plain(x, coef, (11, 13)),
+                      (r(2, 3, 15, 17),))
 
 
 def test_launch_counts_and_refusals(dev):
@@ -111,3 +183,10 @@ def test_launch_counts_and_refusals(dev):
         kernels.modconv3x3(x, torch.zeros(3, 3, 4, 2, device=dev))
     with pytest.raises(ValueError):
         kernels.upfirdn2d(x, torch.ones(4, 4), up=(4, 4))
+    with pytest.raises(ValueError):
+        kernels.upfirdn2d(x, torch.ones(1, 13))
+    with pytest.raises(ValueError):  # float64 coefficients
+        kernels.affine_warp(x, torch.zeros(1, 6, dtype=torch.float64, device=dev),
+                            (3, 3))
+    kernels.affine_warp(x, torch.zeros(1, 6, device=dev), (3, 3))
+    assert kernels.launch_counts()["affine_warp"] == 1

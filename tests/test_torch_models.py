@@ -144,7 +144,7 @@ def test_frame_graph_matches_jax(bisenet_pair, dtype, batch):
     ref = np.asarray(jax.jit(JT.frame_graph, static_argnums=(1, 6))(
         cast(jp), jcfg, cast(jbp), jnp.asarray(frames), jnp.asarray(s_w),
         jnp.asarray(0.5, jnp.float32), jdt))
-    pipe = T.ToonifyPipeline(p, cfg, bp, dtype=tdt)
+    pipe = T.ToonifyPipeline(p, cfg, bp, dtype=tdt, device="cpu")
     got = pipe.process_batch(frames, s_w, 0.5).numpy()
     assert got.shape == (batch, 128, 128, 3) and got.dtype == np.uint8
     diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
@@ -159,7 +159,7 @@ def test_pipeline_surface(bisenet_pair):
     _, bp = bisenet_pair
     rng = np.random.RandomState(8)
     s_w = rng.randn(1, cfg.n_latent, 512).astype(np.float32)
-    pipe = T.ToonifyPipeline(p, cfg, bp, dtype=torch.float32)
+    pipe = T.ToonifyPipeline(p, cfg, bp, dtype=torch.float32, device="cpu")
     frame = rng.randint(0, 256, (32, 40, 3)).astype(np.uint8)  # non-square
     out = pipe.process_image(frame, s_w, 0.5)
     assert out.shape == (128, 160, 3) and out.dtype == np.uint8
@@ -177,7 +177,7 @@ def test_pipeline_surface(bisenet_pair):
                    {"mesh": object()}, {"bucket_margin": 8},
                    {"exstyle": s_w}):
         with pytest.raises(NotImplementedError):
-            T.ToonifyPipeline(p, cfg, bp, **option)
+            T.ToonifyPipeline(p, cfg, bp, device="cpu", **option)
     with pytest.raises(NotImplementedError):
         pipe.compute_style(frame)
 

@@ -188,6 +188,7 @@ def test_cpu_tensors_take_plain_path_and_count_no_launch():
     bias8 = torch.from_numpy(rng.randn(8).astype(np.float32))
     k2 = torch.outer(upfirdn2d.make_kernel([1, 3, 3, 1]),
                      upfirdn2d.make_kernel([1, 3, 3, 1]))
+    coef = torch.tensor([[0.9, 0.1, 0.3, -0.1, 1.1, -0.2]] * 2)
     kernels.reset_launch_counts()
     pairs = [
         (kernels.modconv3x3(x, w, bias=bias4),
@@ -198,21 +199,34 @@ def test_cpu_tensors_take_plain_path_and_count_no_launch():
          kernels.upfirdn2d_plain(x, k2, up=(2, 2), pad=(2, 1, 2, 1))),
         (kernels.depth_to_space2(x, phase_minor=True),
          kernels.depth_to_space2_plain(x, phase_minor=True)),
+        (kernels.affine_warp(x, coef, (5, 7)),
+         kernels.affine_warp_plain(x, coef, (5, 7))),
     ]
     for got, want in pairs:
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert kernels.launch_counts() == {
         "modconv3x3": 0, "fused_leaky_relu": 0, "upfirdn2d": 0,
-        "depth_to_space2": 0}
+        "depth_to_space2": 0, "affine_warp": 0}
 
 
 def test_port_imports_no_jax():
-    """The port package never imports jax (checked in a fresh interpreter)."""
+    """The port package never imports jax (checked in a fresh interpreter,
+    and by a search of its sources and chip_smoke.py for the imports)."""
+    import re
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    files = [*sorted((root / "vtoonify_tpu_torch").rglob("*.py")),
+             root / "chip_smoke.py"]
+    pat = re.compile(r"^\s*(import|from)\s+(jax|vtoonify_tpu)(\.|\s|$)", re.M)
+    bad = [str(f.relative_to(root)) for f in files if pat.search(f.read_text())]
+    assert not bad, bad
     code = (
         "import sys\n"
         "import vtoonify_tpu_torch.pipeline.toonify\n"
         "import vtoonify_tpu_torch.convert.from_jax\n"
         "import vtoonify_tpu_torch.ops.kernels\n"
+        "import vtoonify_tpu_torch.train.steps\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'vtoonify_tpu.')))\n"
         "assert not bad, bad\n"

@@ -8,24 +8,32 @@
 //
 // Replaces blur_same_pallas / _blur_kernel (vtoonify_tpu/ops/pallas_kernels.py)
 // and generalises it from up = down = 1 to up, down in {1, 2} and taps up to
-// 8 x 8 with signed pads. On the main path it is ToRGB's x2 skip upsample
-// of the RGB image: (B, 3, r, r) -> (B, 3, 2r, 2r), r = 32..512, taps
-// outer([1,3,3,1]) / 16, pad (2, 1).
+// 12 x 12 with signed pads. On the main paths it is ToRGB's x2 skip upsample
+// (outer([1,3,3,1]) taps, pad (2, 1)), the training data's x2 downsample and
+// the discriminator's blur (same taps), and the augment's 12-tap SYM6 wavelet
+// passes, one axis at a time ((1, 12) / (12, 1) taps, x2 up with pads (6, 5),
+// x2 down with pads (-1, -1)) on images up to 4120 x 4120.
 //
-// What bounds it on the H100: with 3 channels it moves 12 bytes in and
-// 48 bytes out per input pixel (f32) and does at most 64 multiply-adds per
-// output, so it is bound by device memory and launch latency, not FLOPs. The
-// design is one thread per output element, with consecutive threads on
-// consecutive output columns, so stores are coalesced and the up to
-// ceil(kh/up) x ceil(kw/up) input reads of neighbouring threads hit the same
-// cache lines. The whole 2-D FIR runs in one pass in float32: no
-// intermediate plane between the two separable passes goes to memory.
+// What bounds it on the H100: at most 6 x 6 live taps per output for up = 2
+// (144 multiply-adds for 12 x 12 at up = down = 1) against 2 or 4 bytes read
+// and written per element, so device memory and launch latency, not FLOPs.
+// The design is one thread per output element, with consecutive threads on
+// consecutive output columns, so stores are coalesced and the input reads of
+// neighbouring threads hit the same cache lines. Each thread walks only the
+// input pixels its taps land on: for up = 2 the taps on the zero-stuffed
+// grid's other parity are skipped by the loop bounds, not tested one by one.
+// The whole 2-D FIR runs in one pass in float32: no intermediate plane
+// between the two separable passes goes to memory.
 #include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAX_TAPS = 8;
+constexpr int MAX_TAPS = 12;
+
+__device__ __forceinline__ int floor_div(int a, int b) {  // b > 0
+  return a >= 0 ? a / b : -((-a + b - 1) / b);
+}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -40,20 +48,21 @@ upfirdn2d_kernel(const T* __restrict__ x, const float* __restrict__ k,
   const size_t p = i / ((size_t)ow * oh);
   const T* xp = x + p * h * w;
 
+  // stuffed-grid rows by .. by + kh - 1 hold input rows iy with
+  // iy * up_y in that window; tap ty = iy * up_y - by
+  const int by = oy * down_y - pad_y0;
+  const int bx = ox * down_x - pad_x0;
+  const int iy0 = max(0, -floor_div(-by, up_y));
+  const int iy1 = min(h - 1, floor_div(by + kh - 1, up_y));
+  const int ix0 = max(0, -floor_div(-bx, up_x));
+  const int ix1 = min(w - 1, floor_div(bx + kw - 1, up_x));
+
   float acc = 0.f;
-  for (int ty = 0; ty < kh; ++ty) {
-    const int sy = oy * down_y + ty - pad_y0;
-    if (sy < 0 || sy % up_y != 0) continue;
-    const int iy = sy / up_y;
-    if (iy >= h) continue;
-    for (int tx = 0; tx < kw; ++tx) {
-      const int sx = ox * down_x + tx - pad_x0;
-      if (sx < 0 || sx % up_x != 0) continue;
-      const int ix = sx / up_x;
-      if (ix >= w) continue;
-      acc = fmaf(__ldg(&k[(kh - 1 - ty) * kw + (kw - 1 - tx)]),
-                 vt::to_float(xp[(size_t)iy * w + ix]), acc);
-    }
+  for (int iy = iy0; iy <= iy1; ++iy) {
+    const float* krow = k + (kh - 1 - (iy * up_y - by)) * kw + (kw - 1);
+    const T* xrow = xp + (size_t)iy * w;
+    for (int ix = ix0; ix <= ix1; ++ix)
+      acc = fmaf(__ldg(krow - (ix * up_x - bx)), vt::to_float(xrow[ix]), acc);
   }
   y[i] = vt::from_float<T>(acc);
 }

@@ -1,18 +1,21 @@
-"""VToonify — the product model, T and D backbones (port of
-vtoonify_tpu/models/vtoonify.py: `VToonifyConfig`, `init_vtoonify`,
-`fusion_apply`, `vtoonify_res_block`, `prepare_styles`, `vtoonify_apply`,
-`zplus2wplus`).
+"""VToonify — the product model, T and D backbones, and the stage-2
+conditional discriminator (port of vtoonify_tpu/models/vtoonify.py:
+`VToonifyConfig`, `init_vtoonify`, `fusion_apply`, `vtoonify_res_block`,
+`prepare_styles`, `vtoonify_apply`, `zplus2wplus`,
+`CondDiscriminatorConfig`, `init_cond_discriminator`,
+`cond_discriminator_apply`).
 
 Activations are NCHW. Every synthesis stage runs the plain (unpacked)
 styled_conv / to_rgb path; the JAX package's space-to-depth packed variants
 for narrow stages are the same algebra laid out for the TPU and are not
-ported. `return_mask`, `return_feat` and `packed_out` are not ported yet.
+ported, nor is `packed_out`.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -209,13 +212,19 @@ def prepare_styles(p: VToonify, cfg: VToonifyConfig, style):
     return resstyles, adastyles
 
 
-def vtoonify_apply(p: VToonify, cfg: VToonifyConfig, x, style, d_s=None):
+def vtoonify_apply(p: VToonify, cfg: VToonifyConfig, x, style, d_s=None,
+                   return_mask: bool = False, return_feat: bool = False):
     """reference model/vtoonify.py:210-277. x: (B, 3+19, H, W) NCHW in
     [-1, 1] RGB + parsing-logit channels, H and W multiples of 8; style:
-    (B or 1, n_latent, 512) or (B, 512). Returns the (B, 3, 4H, 4W) image
-    (for in_size -> out_size = 256 -> 1024)."""
+    (B or 1, n_latent, 512) or (B, 512), or None with `return_feat`.
+    Returns the (B, 3, 4H, 4W) image (for in_size -> out_size = 256 ->
+    1024); with `return_feat` the encoder's (feat, skip) (the stage-1
+    target); with `return_mask` (D backbone) (image, [m_E per fusion])."""
     is_d = cfg.backbone == "dualstylegan"
-    resstyles, adastyles = prepare_styles(p, cfg, style)
+    if style is None and not return_feat:
+        raise ValueError("vtoonify_apply: style=None needs return_feat")
+    resstyles, adastyles = (None, None) if style is None else prepare_styles(
+        p, cfg, style)
 
     # --- encoder walk, collecting multi-scale features
     enc = p.encoder
@@ -237,12 +246,15 @@ def vtoonify_apply(p: VToonify, cfg: VToonifyConfig, x, style, d_s=None):
 
     out = feat
     skip = L.conv2d_torch(enc.final, feat)
+    if return_feat:
+        return out, skip
 
     # --- generator mid/high-res walk starting at 32x32 (convs[6::2])
     gp = p.generator.generator if is_d else p.generator
     start_pair = 3  # pair index producing 64px from 32px
     n_pairs = cfg.generator.log_size - 2
     _index = 1
+    m_Es = []
     for pair in range(start_pair, n_pairs):
         if 2 ** (5 + (_index - 1) // 2) <= cfg.in_size:
             fusion_index = (_index - 1) // 2
@@ -251,6 +263,7 @@ def vtoonify_apply(p: VToonify, cfg: VToonifyConfig, x, style, d_s=None):
                 out, m_E = fusion_apply(p.fusion_out[fusion_index], out, f_E, d_s)
                 skip = L.conv2d_torch_cat2(p.fusion_skip[fusion_index], skip,
                                            f_E * m_E, padding=1)
+                m_Es.append(m_E)
             else:
                 out = L.conv2d_torch_cat2(p.fusion_out[fusion_index], out, f_E,
                                           padding=1)
@@ -262,6 +275,8 @@ def vtoonify_apply(p: VToonify, cfg: VToonifyConfig, x, style, d_s=None):
         out = L.styled_conv(gp.convs[2 * pair + 1], out, adastyles[:, _index + 7])
         skip = L.to_rgb(gp.to_rgbs[pair], out, adastyles[:, _index + 8], skip)
         _index += 2
+    if return_mask and is_d:
+        return skip, m_Es
     return skip
 
 
@@ -271,3 +286,59 @@ def zplus2wplus(p: VToonify, cfg: VToonifyConfig, zplus):
     nb, nl, nd = zplus.shape
     return G.style_mlp(gp, cfg.generator,
                        zplus.reshape(nb * nl, nd)).reshape(zplus.shape)
+
+
+# ---------------------------------------------------------------------------
+# ConditionalDiscriminator (reference vtoonify.py:10-89)
+
+
+@dataclass(frozen=True)
+class CondDiscriminatorConfig:
+    size: int = 256
+    channel_multiplier: int = 2
+    channel_max: int = 512
+    use_condition: bool = False
+    style_num: Optional[int] = None
+
+    @property
+    def base(self) -> G.DiscriminatorConfig:
+        return G.DiscriminatorConfig(size=self.size,
+                                     channel_multiplier=self.channel_multiplier,
+                                     channel_max=self.channel_max)
+
+
+class CondDiscriminator(G.Discriminator):
+    def __init__(self, cfg: CondDiscriminatorConfig, generator=None):
+        super().__init__(cfg.base, generator=generator)
+        g = generator
+        ch = cfg.base.channels
+        if cfg.use_condition:
+            cd = 128
+            self.final_linear[1] = L.EqualLinear(ch[4], cd, generator=g)
+            self.label_mapper = nn.ModuleList([
+                L.LinearTorch(1, 64, generator=g),
+                L.LinearTorch(64, 64, generator=g),
+                L.LinearTorch(64, cd // 2, generator=g)])
+            self.style_embed = L._param(
+                torch.randn((cfg.style_num, cd - cd // 2), generator=g))
+
+
+def init_cond_discriminator(cfg: CondDiscriminatorConfig,
+                            generator=None) -> CondDiscriminator:
+    return CondDiscriminator(cfg, generator)
+
+
+def cond_discriminator_apply(p: CondDiscriminator, cfg: CondDiscriminatorConfig,
+                             x, degree_label=None, style_ind=None):
+    """(B, 3, size, size) -> (B, 1) logits; with `use_condition` the
+    projection onto [label_mapper(degree_label), style_embed[style_ind]]."""
+    h = L.equal_linear(p.final_linear[1], G.discriminator_features(p, x))
+    if not cfg.use_condition:
+        return h
+    lab = degree_label
+    for i, lp in enumerate(p.label_mapper):
+        lab = L.linear_torch(lp, lab)
+        if i < 2:
+            lab = F.leaky_relu(lab, 0.2)
+    cond = torch.cat([lab, p.style_embed[style_ind].to(lab.dtype)], dim=1)
+    return torch.sum(h * cond, dim=1, keepdim=True) / math.sqrt(cond.shape[-1])

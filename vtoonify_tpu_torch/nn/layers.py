@@ -12,12 +12,17 @@ scales (1/sqrt(fan_in) * lr_mul) are applied at call time. Layouts are
 PyTorch's: activations NCHW, conv weights OIHW, linear weights (out, in).
 Constructors draw from an explicit `torch.Generator` on the CPU, with the
 JAX `init_*` distributions; move the module with `.to(device, dtype)`.
+Parameters are frozen (`requires_grad=False`) unless a trainer marks a
+subtree with `set_trainable`.
 
 The styled 3x3 convs (plain and polyphase x2 up) run in kernel B1 with their
-bias + leaky-ReLU epilogue fused; the up conv's interleave runs in kernel B4;
-ToRGB's skip upsample in kernel B3; conv_layer's activation in kernel B2.
+bias + leaky-ReLU epilogue fused; with noise injection B1 runs raw and the
+noise add is followed by kernel B2. The up conv's interleave runs in kernel
+B4; ToRGB's skip upsample and conv_layer's downsampling blur in kernel B3;
+conv_layer's activation in kernel B2. All five carry gradients.
 Not ported (TPU-only): the space-to-depth packed stage variants and the
-cat2-split weight storage (fusion convs hold one merged weight).
+cat2-split weight storage (fusion convs and the discriminator's final conv
+hold one merged weight).
 """
 
 from __future__ import annotations
@@ -45,6 +50,13 @@ def _uniform(generator, shape, bound):
 
 def _param(t):
     return nn.Parameter(t, requires_grad=False)
+
+
+def set_trainable(module: nn.Module, trainable: bool = True) -> nn.Module:
+    """Mark every parameter of `module` as trainable (or frozen again)."""
+    for p in module.parameters():
+        p.requires_grad_(trainable)
+    return module
 
 
 # ---------------------------------------------------------------------------
@@ -126,6 +138,24 @@ def conv_layer(p, x, ksize, downsample=False, activate=True, dilation=1,
     if activate:
         out = fused_leaky_relu(out, p.act_bias)
     return out
+
+
+class ResBlock(nn.Module):
+    def __init__(self, in_ch, out_ch, generator=None):
+        super().__init__()
+        g = generator
+        self.conv1 = ConvLayer(in_ch, in_ch, 3, generator=g)
+        self.conv2 = ConvLayer(in_ch, out_ch, 3, generator=g)
+        self.skip = ConvLayer(in_ch, out_ch, 1, bias=False, activate=False,
+                              generator=g)
+
+
+def res_block(p, x):
+    """reference model.py:640-658 (the discriminator's downsampling block)."""
+    out = conv_layer(p.conv1, x, 3)
+    out = conv_layer(p.conv2, out, 3, downsample=True)
+    skip = conv_layer(p.skip, x, 1, downsample=True, activate=False)
+    return (out + skip) / math.sqrt(2)
 
 
 # ---------------------------------------------------------------------------
@@ -226,6 +256,13 @@ class NoiseInjection(nn.Module):
         self.weight = _param(torch.zeros(()))
 
 
+def noise_injection(p, x, noise):
+    """reference model.py:309-320; noise (B, 1, H, W) or None."""
+    if noise is None:
+        return x
+    return x + p.weight.to(x.dtype) * noise.to(x.dtype)
+
+
 class StyledConv(nn.Module):
     def __init__(self, in_ch, out_ch, ksize, style_dim, generator=None):
         super().__init__()
@@ -236,12 +273,16 @@ class StyledConv(nn.Module):
 
 
 def styled_conv(p, x, style, noise=None, upsample=False, demodulate=True):
-    """reference model.py:336-370. VToonify runs with zero noise
-    (vtoonify.py:266-267); explicit noise is not ported."""
-    if noise is not None:
-        raise NotImplementedError("styled_conv: noise injection is not ported")
-    return modulated_conv2d(p.conv, x, style, demodulate=demodulate,
-                            upsample=upsample, act_bias=p.act_bias)
+    """reference model.py:336-370. Without noise (VToonify runs with zero
+    noise, vtoonify.py:266-267) the bias + leaky-ReLU fuse into B1's
+    epilogue; with noise (B, 1, H', W') B1 runs raw (then B4 for the up
+    conv), the noise is added, then B2."""
+    if noise is None:
+        return modulated_conv2d(p.conv, x, style, demodulate=demodulate,
+                                upsample=upsample, act_bias=p.act_bias)
+    out = modulated_conv2d(p.conv, x, style, demodulate=demodulate,
+                           upsample=upsample)
+    return fused_leaky_relu(noise_injection(p.noise, out, noise), p.act_bias)
 
 
 class ToRGB(nn.Module):
@@ -304,6 +345,17 @@ def linear_torch(p, x):
     if p.bias is not None:
         out = out + p.bias.to(out.dtype)
     return out
+
+
+class PReLU(nn.Module):
+    def __init__(self, ch):
+        super().__init__()
+        self.weight = _param(torch.full((ch,), 0.25))
+
+
+def prelu(p, x):
+    """torch nn.PReLU with a per-channel weight (channel dim 1)."""
+    return torch.where(x >= 0, x, p.weight.to(x.dtype)[None, :, None, None] * x)
 
 
 def instance_norm_2d(x, eps: float = 1e-5):

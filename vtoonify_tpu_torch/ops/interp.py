@@ -25,6 +25,19 @@ def resize_nearest(x, size):
     return F.interpolate(x, size=tuple(size), mode="nearest")
 
 
+def grid_sample(x, grid, align_corners: bool = False, padding_mode: str = "zeros"):
+    """F.grid_sample(mode='bilinear'); grid (N, Ho, Wo, 2) normalized (x, y).
+    The plain version of kernel B5 (`ops.kernels.affine_warp`) is this call
+    on an affine's grid."""
+    return F.grid_sample(x, grid, mode="bilinear", padding_mode=padding_mode,
+                         align_corners=align_corners)
+
+
+def avg_pool(x, window, stride=None, padding=0):
+    """F.avg_pool2d (zero padding counted, as the JAX reduce_window sum)."""
+    return F.avg_pool2d(x, window, stride=stride, padding=padding)
+
+
 def max_pool(x, window, stride=None, padding=0):
     return F.max_pool2d(x, window, stride=stride, padding=padding)
 

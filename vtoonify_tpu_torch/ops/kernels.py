@@ -1,11 +1,15 @@
-"""The port's four hand-written Hopper kernels, each beside its plain version.
+"""The port's hand-written Hopper kernels, each beside its plain version.
 
-| kernel              | replaces (vtoonify_tpu/ops/pallas_kernels.py)  | source              |
-| ------------------- | ---------------------------------------------- | ------------------- |
-| `modconv3x3`        | B1 `modconv3x3_fused_pallas`                   | csrc/modconv3x3.cu  |
-| `fused_leaky_relu`  | B2 `fused_leaky_relu_pallas`                   | csrc/fused_lrelu.cu |
-| `upfirdn2d`         | B3 `blur_same_pallas` (generalised)            | csrc/upfirdn2d.cu   |
-| `depth_to_space2`   | B4 `depth_to_space2_pallas` (+ phase-minor)    | csrc/d2s2.cu        |
+Every TPU kernel of the JAX package (each function that reaches
+`pl.pallas_call` in vtoonify_tpu/ops/pallas_kernels.py) and its port:
+
+| # | TPU kernel (file:line) | computes | port |
+| --- | --- | --- | --- |
+| B1 | `modconv3x3_fused_pallas` :214 (`_modconv3x3_kernel` :152, call :256) | `lrelu(d * conv3x3(x * s, w) + b) * sqrt2`, stride 1, same pad | `modconv3x3`, csrc/modconv3x3.cu |
+| B2 | `fused_leaky_relu_pallas` :44 (`_fused_lrelu_kernel` :37, call :58) | `(x + b)` -> lrelu 0.2 -> x sqrt2 | `fused_leaky_relu`, csrc/fused_lrelu.cu |
+| B3 | `blur_same_pallas` :109 (`_blur_kernel` :79, call :122) | separable same-size FIR, generalised to upfirdn2d | `upfirdn2d`, csrc/upfirdn2d.cu |
+| B4 | `depth_to_space2_pallas` :600 (`_d2s2_kernel` :591, call :617) | (B,H,W,4C) -> (B,2H,2W,C) | `depth_to_space2` (+ phase-minor), csrc/d2s2.cu |
+| B5 | `affine_warp_bilinear_pallas` :470 (`_affine_warp_kernel` :351, call :542) | bilinear sampling, zero padding, along a pixel-space affine | `affine_warp`, csrc/affine_warp.cu |
 
 Each wrapper dispatches on where its tensor lies and nowhere else: a CPU
 tensor takes the plain PyTorch version (`*_plain`, the tests' oracle); a CUDA
@@ -14,6 +18,13 @@ tensor launches the kernel or raises. The CUDA sources are compiled with
 first use, into `vtoonify_tpu_torch/_build/` (keyed by a hash of the
 sources), and bound with `ctypes`. Each wrapper counts its launches in a
 plain integer attribute, `<wrapper>.launches`.
+
+Gradients: each wrapper runs through a `torch.autograd.Function` whose
+forward dispatches as above and whose backward is plain PyTorch on every
+device (the JAX package has no backward Pallas kernel). B1 and B5 recompute
+their plain version under `enable_grad` and call `torch.autograd.grad`; B2,
+B3 and B4 have hand-derived backwards (lrelu' from the saved output, the
+transposed upfirdn2d, the inverse permutation). No double backward.
 
 Layouts: activations are NCHW and contiguous; the kernels compute in float32
 and load and store float32 or bfloat16.
@@ -32,14 +43,16 @@ import torch
 import torch.nn.functional as F
 
 SQRT2 = math.sqrt(2.0)
+MAX_TAPS = 12  # upfirdn2d filter taps per axis (csrc/upfirdn2d.cu MAX_TAPS)
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-_CU_FILES = ("modconv3x3.cu", "fused_lrelu.cu", "upfirdn2d.cu", "d2s2.cu")
+_CU_FILES = ("modconv3x3.cu", "fused_lrelu.cu", "upfirdn2d.cu", "d2s2.cu",
+             "affine_warp.cu")
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -71,19 +84,32 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile csrc/*.cu for sm_90a into the shared library (no-op when the
-    library for these exact sources exists). Raises with nvcc's output if
-    the build fails."""
+    library for these exact sources exists): one nvcc per source, all started
+    together, then one link. Raises with nvcc's output if a step fails."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(f).stem}.o" for f in _CU_FILES]
+    cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / f)]
+            for f, o in zip(_CU_FILES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / f) for f in _CU_FILES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                           f"{res.stdout}\n{res.stderr}")
+    failed = [(c, log) for c, p, log in zip(cmds, procs, logs) if p.returncode]
+    if not failed:
+        link = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                *(str(o) for o in objs)]
+        res = subprocess.run(link, capture_output=True, text=True)
+        if res.returncode:
+            failed = [(link, res.stdout + res.stderr)]
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{' '.join(c)}\n{log}" for c, log in failed))
     os.replace(tmp, out)
     return out
 
@@ -98,8 +124,9 @@ def _library():
         lib.vt_upfirdn2d.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, i, i,
                                      i, i, i, p]
         lib.vt_d2s2.argtypes = [p, p, i, i, i, i, i, i, p]
+        lib.vt_affine_warp.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
         for fn in (lib.vt_modconv3x3, lib.vt_fused_lrelu, lib.vt_upfirdn2d,
-                   lib.vt_d2s2):
+                   lib.vt_d2s2, lib.vt_affine_warp):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -118,18 +145,22 @@ def _on_cpu(x: torch.Tensor) -> bool:
 
 
 def _check(name, x, *others):
+    """The kernels' dtype rule: float32 or bfloat16, every operand in x's
+    dtype and on its device (contiguity: `_contiguous`, on every device)."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: dtype {x.dtype} not supported "
                         f"({tuple(_DTYPE_CODE)})")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: input must be contiguous")
     for t in others:
-        if t is None:
-            continue
-        if t.device != x.device or t.dtype != x.dtype:
+        if t is not None and (t.device != x.device or t.dtype != x.dtype):
             raise ValueError(f"{name}: operands must share device and dtype "
                              f"({t.device}/{t.dtype} vs {x.device}/{x.dtype})")
-        if not t.is_contiguous():
+
+
+def _contiguous(name, *ts):
+    """The kernels take contiguous operands; the plain versions are held to
+    the same rule so that a CPU run finds a caller that breaks it."""
+    for t in ts:
+        if t is not None and not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
 
 
@@ -155,6 +186,20 @@ def reset_launch_counts():
         fn.launches = 0
 
 
+def _grads_by_recompute(plain, ctx, tensors, grad_out, *consts):
+    """Backward of `plain(*tensors, *consts)` by recomputing it under
+    enable_grad: the gradient of every tensor input that needs one."""
+    need = ctx.needs_input_grad[:len(tensors)]
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(bool(n))
+                  for t, n in zip(tensors, need)]
+        y = plain(*leaves, *consts)
+    wanted = [t for t, n in zip(leaves, need) if n and t is not None]
+    got = iter(torch.autograd.grad(y, wanted, grad_out) if wanted else ())
+    return tuple(next(got) if n and t is not None else None
+                 for t, n in zip(leaves, need))
+
+
 # ---------------------------------------------------------------------------
 # B1: styled 3x3 conv, fused demod + bias + leaky-ReLU epilogue
 
@@ -173,16 +218,7 @@ def modconv3x3_plain(x, w, s=None, d=None, bias=None,
     return y
 
 
-def modconv3x3(x, w, s=None, d=None, bias=None, negative_slope: float = 0.2,
-               gain: float = SQRT2):
-    """lrelu(d * conv3x3(x * s, w) + bias) * gain, stride 1, same padding.
-
-    x: (B, Cin, H, W) NCHW; w: (3, 3, Cin, Cout) HWIO; s: (B, Cin) or None;
-    d: (B, Cout) or None; bias: (Cout,) or None (None: no activation, the
-    raw conv out). Returns (B, Cout, H, W) in x's dtype (float32/bfloat16).
-    """
-    if _on_cpu(x):
-        return modconv3x3_plain(x, w, s, d, bias, negative_slope, gain)
+def _modconv3x3_cuda(x, w, s, d, bias, negative_slope, gain):
     _check("modconv3x3", x, w, s, d, bias)
     b, cin, h, wd = x.shape
     cout = w.shape[-1]
@@ -207,6 +243,38 @@ def modconv3x3(x, w, s=None, d=None, bias=None, negative_slope: float = 0.2,
     return y
 
 
+class _ModConv3x3(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or the plain version (CPU). Backward:
+    recomputes the plain version under enable_grad and takes
+    torch.autograd.grad, for x, w, s, d and bias."""
+
+    @staticmethod
+    def forward(ctx, x, w, s, d, bias, negative_slope, gain):
+        _contiguous("modconv3x3", x, w, s, d, bias)
+        ctx.save_for_backward(x, w, s, d, bias)
+        ctx.consts = (negative_slope, gain)
+        if _on_cpu(x):
+            return modconv3x3_plain(x, w, s, d, bias, negative_slope, gain)
+        return _modconv3x3_cuda(x, w, s, d, bias, negative_slope, gain)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = _grads_by_recompute(modconv3x3_plain, ctx, ctx.saved_tensors,
+                                    g, *ctx.consts)
+        return grads + (None, None)
+
+
+def modconv3x3(x, w, s=None, d=None, bias=None, negative_slope: float = 0.2,
+               gain: float = SQRT2):
+    """lrelu(d * conv3x3(x * s, w) + bias) * gain, stride 1, same padding.
+
+    x: (B, Cin, H, W) NCHW; w: (3, 3, Cin, Cout) HWIO; s: (B, Cin) or None;
+    d: (B, Cout) or None; bias: (Cout,) or None (None: no activation, the
+    raw conv out). Returns (B, Cout, H, W) in x's dtype (float32/bfloat16).
+    """
+    return _ModConv3x3.apply(x, w, s, d, bias, negative_slope, gain)
+
+
 # ---------------------------------------------------------------------------
 # B2: fused bias + leaky-ReLU x gain
 
@@ -219,15 +287,7 @@ def fused_leaky_relu_plain(x, bias=None, negative_slope: float = 0.2,
     return F.leaky_relu(x, negative_slope) * gain
 
 
-def fused_leaky_relu(x, bias=None, negative_slope: float = 0.2,
-                     gain: float = SQRT2):
-    """leaky_relu(x + bias, slope) * gain with the bias on dim 1.
-
-    x: (N, C, ...) — NCHW activations or (N, C) linear outputs; bias: (C,)
-    in x's dtype, or None. Returns a new tensor of x's shape and dtype.
-    """
-    if _on_cpu(x):
-        return fused_leaky_relu_plain(x, bias, negative_slope, gain)
+def _fused_leaky_relu_cuda(x, bias, negative_slope, gain):
     _check("fused_leaky_relu", x, bias)
     c = x.shape[1] if x.ndim > 1 else 1
     if bias is not None and tuple(bias.shape) != (c,):
@@ -242,6 +302,43 @@ def fused_leaky_relu(x, bias=None, negative_slope: float = 0.2,
     _raise_on(rc, "fused_leaky_relu")
     fused_leaky_relu.launches += 1
     return y
+
+
+class _FusedLeakyReLU(torch.autograd.Function):
+    """Backward by hand from the saved output (its sign is the
+    pre-activation's): dx = g * gain * (1 if y > 0 else slope), and
+    dbias = dx summed over every dim but 1."""
+
+    @staticmethod
+    def forward(ctx, x, bias, negative_slope, gain):
+        _contiguous("fused_leaky_relu", x, bias)
+        y = (fused_leaky_relu_plain(x, bias, negative_slope, gain) if _on_cpu(x)
+             else _fused_leaky_relu_cuda(x, bias, negative_slope, gain))
+        ctx.save_for_backward(y)
+        ctx.consts = (negative_slope, gain)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        slope, gain = ctx.consts
+        gx = torch.where(y > 0, g * gain, g * (slope * gain))
+        gb = None
+        if ctx.needs_input_grad[1]:
+            dims = [i for i in range(gx.ndim) if i != 1]
+            gb = gx.sum(dim=dims, dtype=torch.promote_types(gx.dtype, torch.float32))
+            gb = gb.to(gx.dtype)
+        return (gx if ctx.needs_input_grad[0] else None), gb, None, None
+
+
+def fused_leaky_relu(x, bias=None, negative_slope: float = 0.2,
+                     gain: float = SQRT2):
+    """leaky_relu(x + bias, slope) * gain with the bias on dim 1.
+
+    x: (N, C, ...) — NCHW activations or (N, C) linear outputs; bias: (C,)
+    in x's dtype, or None. Returns a new tensor of x's shape and dtype.
+    """
+    return _FusedLeakyReLU.apply(x, bias, negative_slope, gain)
 
 
 # ---------------------------------------------------------------------------
@@ -267,26 +364,28 @@ def upfirdn2d_plain(x, k2d, up=(1, 1), down=(1, 1), pad=(0, 0, 0, 0)):
     return t.reshape(n, c, t.shape[2], t.shape[3])
 
 
-def upfirdn2d(x, k2d, up=(1, 1), down=(1, 1), pad=(0, 0, 0, 0)):
-    """Per-plane up-FIR-down resampling.
+def _upfirdn2d_out_hw(h, w, kh, kw, up, down, pad):
+    px0, px1, py0, py1 = pad
+    return ((h * up[1] + py0 + py1 - kh + down[1]) // down[1],
+            (w * up[0] + px0 + px1 - kw + down[0]) // down[0])
 
-    x: (N, C, H, W) NCHW; k2d: (kh, kw) float32 taps in convolution
-    orientation, kh, kw <= 8; up, down: (x, y) factors in {1, 2};
-    pad: (x0, x1, y0, y1), negative pads crop.
-    """
-    if _on_cpu(x):
-        return upfirdn2d_plain(x, k2d, up, down, pad)
+
+def _upfirdn2d_args(up, down, k2d):
+    kh, kw = k2d.shape
+    if not (set(up) | set(down) <= {1, 2} and kh <= MAX_TAPS and kw <= MAX_TAPS):
+        raise ValueError(f"upfirdn2d kernel takes up, down in {{1, 2}} and "
+                         f"taps <= {MAX_TAPS} (got up={up}, down={down}, "
+                         f"k={kh}x{kw})")
+
+
+def _upfirdn2d_cuda(x, k2d, up, down, pad):
     _check("upfirdn2d", x)
     up_x, up_y = up
     down_x, down_y = down
-    px0, px1, py0, py1 = pad
+    px0, _, py0, _ = pad
     kh, kw = k2d.shape
-    if not ({up_x, up_y, down_x, down_y} <= {1, 2} and kh <= 8 and kw <= 8):
-        raise ValueError(f"upfirdn2d kernel takes up, down in {{1, 2}} and "
-                         f"taps <= 8 (got up={up}, down={down}, k={kh}x{kw})")
     n, c, h, w = x.shape
-    oh = (h * up_y + py0 + py1 - kh + down_y) // down_y
-    ow = (w * up_x + px0 + px1 - kw + down_x) // down_x
+    oh, ow = _upfirdn2d_out_hw(h, w, kh, kw, up, down, pad)
     y = torch.empty((n, c, oh, ow), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
@@ -297,6 +396,45 @@ def upfirdn2d(x, k2d, up=(1, 1), down=(1, 1), pad=(0, 0, 0, 0)):
     _raise_on(rc, "upfirdn2d")
     upfirdn2d.launches += 1
     return y
+
+
+class _UpFirDn2d(torch.autograd.Function):
+    """Backward by hand: the adjoint of upfirdn2d(x, k, up, down, pad) is
+    upfirdn2d(g, flip(k), up=down, down=up) with the pads that give back the
+    input size (the reference's UpFirDn2dBackward), run in the plain version.
+    The taps are constants (no gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, k2d, up, down, pad):
+        _contiguous("upfirdn2d", x)
+        _upfirdn2d_args(up, down, k2d)  # the kernel's limits, on every device
+        y = (upfirdn2d_plain(x, k2d, up, down, pad) if _on_cpu(x)
+             else _upfirdn2d_cuda(x, k2d, up, down, pad))
+        ctx.save_for_backward(k2d)
+        ctx.args = (x.shape[2:], y.shape[2:], up, down, pad)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (k2d,) = ctx.saved_tensors
+        (h, w), (oh, ow), (up_x, up_y), (down_x, down_y), (px0, _, py0, _) = ctx.args
+        kh, kw = k2d.shape
+        gpad = (kw - px0 - 1, w * up_x - ow * down_x + px0 - up_x + 1,
+                kh - py0 - 1, h * up_y - oh * down_y + py0 - up_y + 1)
+        gx = upfirdn2d_plain(g, torch.flip(k2d, (0, 1)), up=(down_x, down_y),
+                             down=(up_x, up_y), pad=gpad)
+        return gx, None, None, None, None
+
+
+def upfirdn2d(x, k2d, up=(1, 1), down=(1, 1), pad=(0, 0, 0, 0)):
+    """Per-plane up-FIR-down resampling.
+
+    x: (N, C, H, W) NCHW; k2d: (kh, kw) float32 taps in convolution
+    orientation, kh, kw <= 12 (per-axis filters are (1, k) or (k, 1));
+    up, down: (x, y) factors in {1, 2}; pad: (x0, x1, y0, y1), negative pads
+    crop.
+    """
+    return _UpFirDn2d.apply(x, k2d, tuple(up), tuple(down), tuple(pad))
 
 
 # ---------------------------------------------------------------------------
@@ -314,16 +452,16 @@ def depth_to_space2_plain(x, phase_minor: bool = False):
     return t.permute(0, 1, 4, 2, 5, 3).reshape(n, c, 2 * h, 2 * w)
 
 
-def depth_to_space2(x, phase_minor: bool = False):
-    """(B, 4C, H, W) -> (B, C, 2H, 2W), NCHW, any dtype of 1, 2 or 4 bytes.
+def space_to_depth2_plain(y, phase_minor: bool = False):
+    """Inverse of `depth_to_space2_plain`: (N, C, 2H, 2W) -> (N, 4C, H, W)."""
+    n, c, h2, w2 = y.shape
+    t = y.reshape(n, c, h2 // 2, 2, w2 // 2, 2).permute(0, 1, 3, 5, 2, 4)
+    if not phase_minor:
+        t = t.permute(0, 2, 3, 1, 4, 5)
+    return t.reshape(n, 4 * c, h2 // 2, w2 // 2)
 
-    phase_minor: input channel o*4 + a*2 + e (the polyphase up conv's
-    packing); else (a*2 + e)*C + o (phase-major).
-    """
-    if _on_cpu(x):
-        return depth_to_space2_plain(x, phase_minor)
-    if not x.is_contiguous():
-        raise ValueError("depth_to_space2: input must be contiguous")
+
+def _depth_to_space2_cuda(x, phase_minor):
     n, c4, h, w = x.shape
     if c4 % 4:
         raise ValueError(f"depth_to_space2: channels {c4} not divisible by 4")
@@ -339,5 +477,109 @@ def depth_to_space2(x, phase_minor: bool = False):
     return y
 
 
-KERNELS = (modconv3x3, fused_leaky_relu, upfirdn2d, depth_to_space2)
+class _DepthToSpace2(torch.autograd.Function):
+    """Backward by hand: the inverse permutation (space_to_depth2_plain)."""
+
+    @staticmethod
+    def forward(ctx, x, phase_minor):
+        _contiguous("depth_to_space2", x)
+        ctx.phase_minor = phase_minor
+        if _on_cpu(x):
+            return depth_to_space2_plain(x, phase_minor)
+        return _depth_to_space2_cuda(x, phase_minor)
+
+    @staticmethod
+    def backward(ctx, g):
+        return space_to_depth2_plain(g, ctx.phase_minor), None
+
+
+def depth_to_space2(x, phase_minor: bool = False):
+    """(B, 4C, H, W) -> (B, C, 2H, 2W), NCHW, any dtype of 1, 2 or 4 bytes.
+
+    phase_minor: input channel o*4 + a*2 + e (the polyphase up conv's
+    packing); else (a*2 + e)*C + o (phase-major).
+    """
+    return _DepthToSpace2.apply(x, bool(phase_minor))
+
+
+# ---------------------------------------------------------------------------
+# B5: affine bilinear warp
+
+
+def affine_warp_grid(coef, out_hw, in_hw):
+    """The normalized F.grid_sample grid (N, Ho, Wo, 2), align_corners=False,
+    of the pixel-space affine coef (N, 6) = [ax, bx, cx, ay, by, cy]: output
+    pixel (row j, column i) samples (fx, fy) = (ax*i + bx*j + cx,
+    ay*i + by*j + cy)."""
+    ho, wo = out_hw
+    h, w = in_hw
+    coef = coef.to(torch.promote_types(coef.dtype, torch.float32))
+    i = torch.arange(wo, dtype=coef.dtype, device=coef.device)[None, None, :]
+    j = torch.arange(ho, dtype=coef.dtype, device=coef.device)[None, :, None]
+    ax, bx, cx, ay, by, cy = (v[:, None, None] for v in coef.unbind(1))
+    fx = ax * i + bx * j + cx
+    fy = ay * i + by * j + cy
+    return torch.stack([(2 * fx + 1) / w - 1, (2 * fy + 1) / h - 1], dim=-1)
+
+
+def affine_warp_plain(img, coef, out_hw):
+    """Plain version of `affine_warp`: F.grid_sample (bilinear, zeros,
+    align_corners=False) on the grid of the same affine, in at least float32,
+    cast back to img's dtype."""
+    dt = torch.promote_types(img.dtype, torch.float32)
+    grid = affine_warp_grid(coef, out_hw, img.shape[2:]).to(dt)
+    out = F.grid_sample(img.to(dt), grid, mode="bilinear",
+                        padding_mode="zeros", align_corners=False)
+    return out.to(img.dtype)
+
+
+def _affine_warp_cuda(img, coef, out_hw):
+    _check("affine_warp", img)
+    n, c, h, w = img.shape
+    ho, wo = out_hw
+    if (coef.dtype != torch.float32 or tuple(coef.shape) != (n, 6)
+            or coef.device != img.device):
+        raise ValueError(f"affine_warp: coef must be a contiguous ({n}, 6) "
+                         f"float32 tensor on {img.device}")
+    y = torch.empty((n, c, ho, wo), dtype=img.dtype, device=img.device)
+    if y.numel() == 0:
+        return y
+    rc = _library().vt_affine_warp(_ptr(img), _ptr(coef), _ptr(y), n, c, h, w,
+                                   ho, wo, _DTYPE_CODE[img.dtype], _stream(img))
+    _raise_on(rc, "affine_warp")
+    affine_warp.launches += 1
+    return y
+
+
+class _AffineWarp(torch.autograd.Function):
+    """Backward: recomputes the plain version (F.grid_sample) under
+    enable_grad and takes torch.autograd.grad, for img and coef — the
+    grid_sample VJP, as the JAX package's custom_vjp does."""
+
+    @staticmethod
+    def forward(ctx, img, coef, out_hw):
+        _contiguous("affine_warp", img, coef)
+        ctx.save_for_backward(img, coef)
+        ctx.out_hw = out_hw
+        if _on_cpu(img):
+            return affine_warp_plain(img, coef, out_hw)
+        return _affine_warp_cuda(img, coef, out_hw)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = _grads_by_recompute(affine_warp_plain, ctx, ctx.saved_tensors,
+                                    g, ctx.out_hw)
+        return grads + (None,)
+
+
+def affine_warp(img, coef, out_hw):
+    """Bilinear warp with zero padding: img (N, C, H, W) float32/bfloat16;
+    coef (N, 6) float32 pixel-space affine [ax, bx, cx, ay, by, cy] (see
+    `affine_warp_grid`); returns (N, C, Ho, Wo) in img's dtype. No bound on
+    the affine's scale."""
+    return _AffineWarp.apply(img, coef, tuple(int(v) for v in out_hw))
+
+
+KERNELS = (modconv3x3, fused_leaky_relu, upfirdn2d, depth_to_space2,
+           affine_warp)
 reset_launch_counts()

@@ -10,9 +10,10 @@ model/stylegan/op_cpu/upfirdn2d.py):
 
     out = (in * up + pad0 + pad1 - k + down) // down          per axis
 
-A 1-D kernel is separable and applied along both axes, as in the JAX package.
-The work runs in kernel B3 (`ops.kernels.upfirdn2d`, one pass over the 2-D
-outer-product taps).
+A 1-D kernel is separable and applied along both axes, as in the JAX package;
+a per-axis filter is passed as a (1, k) or (k, 1) 2-D kernel (the augment's
+SYM6 passes). The work runs in kernel B3 (`ops.kernels.upfirdn2d`, one pass
+over the 2-D taps), which carries gradients to x.
 """
 
 from __future__ import annotations
@@ -56,8 +57,8 @@ def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
     kernel = torch.as_tensor(kernel, dtype=torch.float32)
     if kernel.ndim == 1:
         kernel = torch.outer(kernel, kernel)
-    return kernels.upfirdn2d(x, kernel, up=_pairify(up), down=_pairify(down),
-                             pad=_pad4(pad))
+    return kernels.upfirdn2d(x.contiguous(), kernel, up=_pairify(up),
+                             down=_pairify(down), pad=_pad4(pad))
 
 
 def upsample_2x(x, kernel_1d):
@@ -65,6 +66,12 @@ def upsample_2x(x, kernel_1d):
     k = kernel_1d * 2.0  # sqrt(factor**2) per separable axis
     p = k.shape[0] - 2
     return upfirdn2d(x, k, up=2, down=1, pad=((p + 1) // 2 + 1, p // 2))
+
+
+def downsample_2x(x, kernel_1d):
+    """Reference Downsample module (model.py:53-71)."""
+    p = kernel_1d.shape[0] - 2
+    return upfirdn2d(x, kernel_1d, up=1, down=2, pad=((p + 1) // 2, p // 2))
 
 
 def blur(x, kernel_1d, pad, upsample_factor: int = 1):

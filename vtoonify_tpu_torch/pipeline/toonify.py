@@ -5,6 +5,7 @@ vtoonify_tpu/pipeline/toonify.py: `frame_graph`, `frame_graph_with_parsing`,
 The public frame API keeps the JAX package's layout: uint8 (B, H, W, 3) in,
 uint8 (B, 4H, 4W, 3) out. Inside, activations are NCHW. Compute dtype is
 bfloat16 by default; the modules are cast once when the pipeline is built.
+The pipeline runs on the card unless it is built with `device="cpu"`.
 Not ported yet: style preparation (`compute_style`, pSp, the exemplar
 style), size bucketing, packed output and device meshes; asking for one
 raises NotImplementedError.
@@ -17,6 +18,7 @@ import copy
 import numpy as np
 import torch
 
+from vtoonify_tpu_torch import resolve_device
 from vtoonify_tpu_torch.models.bisenet import bisenet_apply
 from vtoonify_tpu_torch.models.vtoonify import VToonifyConfig, vtoonify_apply
 from vtoonify_tpu_torch.ops.interp import resize_bilinear, resize_nearest
@@ -69,15 +71,17 @@ def frame_graph_with_parsing(vt, vt_cfg: VToonifyConfig, frames_u8, x_p, s_w,
 class ToonifyPipeline:
     """Programmatic API over the per-frame graph.
 
-    Holds copies of the modules cast to the compute dtype, on the device of
-    `vt`'s parameters. Style codes are computed once per image/video and
-    frozen; pass them to `process_batch` as (1, n_latent, 512).
+    Holds copies of the modules cast to the compute dtype on `device`
+    (None: the card, `cuda`; raises when there is none — pass "cpu" to run
+    on the CPU). Style codes are computed once per image/video and frozen;
+    pass them to `process_batch` as (1, n_latent, 512).
     """
 
     def __init__(self, vt, vt_cfg: VToonifyConfig, parsing, psp_params=None,
                  psp_cfg=None, latent_avg=None, exstyle=None,
                  dtype=torch.bfloat16, mesh=None, size_bucket=None,
-                 packed_output: bool = False, bucket_margin: int = 0):
+                 packed_output: bool = False, bucket_margin: int = 0,
+                 device=None):
         unported = {"psp_params": psp_params, "psp_cfg": psp_cfg,
                     "latent_avg": latent_avg, "exstyle": exstyle, "mesh": mesh,
                     "size_bucket": size_bucket,
@@ -89,8 +93,9 @@ class ToonifyPipeline:
                                       "not ported yet")
         self.vt_cfg = vt_cfg
         self.dtype = dtype
-        self.device = next(vt.parameters()).device
-        self.vt = vt if dtype == torch.float32 else copy.deepcopy(vt).to(dtype)
+        self.device = resolve_device(device)
+        self.vt = vt.to(self.device) if dtype == torch.float32 else (
+            copy.deepcopy(vt).to(self.device, dtype))
         self.parsing = copy.deepcopy(parsing).to(self.device, dtype)
 
     def compute_style(self, aligned_face_u8, color_transfer: bool = False):
