@@ -72,6 +72,14 @@ UPCONV = [(32, 512, 512), (64, 512, 256), (128, 256, 128), (256, 128, 64),
 TEACHER_LOW = [(4, False), (4, True), (8, False), (8, True), (16, False),
                (16, True), (32, False)]            # (input size, up conv?)
 RGB_SKIP = [32, 64, 128, 256, 512]                 # (B, 3, r, r) -> 2r
+# the train step's temporal-crop forward: the 896 px crop comes in at 224 px
+# (28^2 features), so every student layer runs at 7/8 of its size above —
+# sizes that are not multiples of B1's 8x16 px tile
+CROP_CONV3X3 = [(56, 512, 512), (112, 256, 256), (224, 128, 128),
+                (448, 64, 64), (896, 32, 32)]
+CROP_UPCONV = [(28, 512, 512), (56, 512, 256), (112, 256, 128), (224, 128, 64),
+               (448, 64, 32)]
+CROP_RGB_SKIP = [28, 56, 112, 224, 448]
 D_BLUR = [(256, 128), (128, 256), (64, 512), (32, 512), (16, 512), (8, 512)]
 SYNTH_DOWN = [(3, 1024), (3, 512), (19, 512), (22, 896), (22, 448)]
 AUG = 4120                                         # x2 augment plane (1024 px)
@@ -92,7 +100,7 @@ SUMMARY_SET = {  # the shapes each kernel's summary record sums over (bf16)
     "fused_leaky_relu": "batch-1 serving shapes",
     "upfirdn2d": "discriminator blur shapes, batch 2 (library depthwise F.conv2d)",
     "depth_to_space2": "batch-1 serving up-conv interleaves (library F.pixel_shuffle)",
-    "affine_warp": "flagship augment warp, p=1 affine (library F.grid_sample, float32)",
+    "affine_warp": "flagship augment warp, p=1 affine (library F.grid_sample)",
 }
 
 
@@ -182,6 +190,18 @@ def kernel_cases(rng, dev):
                   False, False, summary=True)
         conv_case(f"teacher conv {size}^2 {cin}->{cout} raw b2", 2, size, cin,
                   cout, True, False)
+        conv_case(f"student conv {size}^2 {cin}->{cout} b2", 2, size, cin, cout,
+                  True, True)
+    for size, cin, cout in CROP_CONV3X3:
+        conv_case(f"crop conv {size}^2 {cin}->{cout} b2", 2, size, cin, cout,
+                  True, True)
+        conv_case(f"crop conv {size}^2 {cin}->{cout} raw b2", 2, size, cin, cout,
+                  True, False)
+    for size, cin, cout in CROP_UPCONV:
+        conv_case(f"crop upconv {size}^2 {cin}->4*{cout} b2", 2, size, cin,
+                  4 * cout, True, True)
+        conv_case(f"crop upconv {size}^2 {cin}->4*{cout} raw b2", 2, size, cin,
+                  4 * cout, True, False)
     for size, cin, cout in UPCONV:
         conv_case(f"upconv {size}^2 {cin}->4*{cout}", 1, size, cin, 4 * cout,
                   True, True)
@@ -191,6 +211,8 @@ def kernel_cases(rng, dev):
                   4 * cout, False, False, summary=True)
         conv_case(f"teacher upconv {size}^2 {cin}->4*{cout} raw b2", 2, size,
                   cin, 4 * cout, True, False)
+        conv_case(f"student upconv {size}^2 {cin}->4*{cout} b2", 2, size, cin,
+                  4 * cout, True, True)
     for size, upc in TEACHER_LOW:
         conv_case(f"teacher {'upconv' if upc else 'conv'} {size}^2 512->"
                   f"{'4*' if upc else ''}512 raw b2", 2, size, 512,
@@ -230,8 +252,9 @@ def kernel_cases(rng, dev):
     k1 = make_kernel([1, 3, 3, 1])
     k_up = torch.outer(k1 * 2.0, k1 * 2.0)
     k_blur = torch.outer(k1, k1)
-    for b in (1, 4):
-        for r in RGB_SKIP:
+    for b, sizes in ((1, RGB_SKIP), (2, RGB_SKIP), (4, RGB_SKIP),
+                     (2, CROP_RGB_SKIP)):
+        for r in sizes:
             fir_case(f"upsample_2x ({b},3,{r},{r})", (b, 3, r, r), k_up, (2, 2),
                      (1, 1), (2, 1, 2, 1))
     for r, c in D_BLUR:
@@ -253,8 +276,8 @@ def kernel_cases(rng, dev):
     fir_case(f"SYM6 y-down (2,6,{half},1024)", (2, 6, half, 1024),
              sym6.flip(0)[:, None], (1, 1), (1, 2), (0, 0, -1, -1), reps=5)
 
-    for b in (1, 4):
-        for size, _, cout in UPCONV:
+    for b, shapes in ((1, UPCONV), (2, UPCONV), (4, UPCONV), (2, CROP_UPCONV)):
+        for size, _, cout in shapes:
             x = t(b, 4 * cout, size, size)
 
             def make(dt, x=x):
@@ -277,12 +300,14 @@ def kernel_cases(rng, dev):
         grid = A._affine_grid(theta, out_hw)
 
         def make(dt, coef=coef, grid=grid, out_hw=out_hw):
-            a, c, g = img.to(dev, dt), coef.to(dev), grid.to(dev)
-            a32 = img.to(dev)
+            # F.grid_sample takes its grid in the image's dtype: in bf16 the
+            # library call reads the same image bytes but rounds coordinates
+            # to 8 bits, so its time is comparable and its values are not
+            a, c, g = img.to(dev, dt), coef.to(dev), grid.to(dev, dt)
             # bytes: the input pixels the sampling reaches (nonzero corner
             # weights) once, plus the output; ~12 FLOPs/pixel + 8/value
             with torch.enable_grad():
-                leaf = a32[:, :1].clone().requires_grad_()
+                leaf = img[:, :1].contiguous().to(dev).requires_grad_()
                 touched = torch.autograd.grad(
                     K.affine_warp_plain(leaf, c, out_hw).sum(), leaf)[0]
             n_in = int((touched != 0).sum()) * a.shape[1]
@@ -290,7 +315,7 @@ def kernel_cases(rng, dev):
             es = torch.finfo(dt).bits // 8
             work = ((n_in + n_out) * es, a.shape[0] * out_hw[0] * out_hw[1]
                     * (12 + 8 * a.shape[1]))
-            lib = lambda: F.grid_sample(a32, g, mode="bilinear",  # noqa: E731
+            lib = lambda: F.grid_sample(a, g, mode="bilinear",  # noqa: E731
                                         padding_mode="zeros", align_corners=False)
             return (lambda: K.affine_warp(a, c, out_hw),
                     lambda: K.affine_warp_plain(a, c, out_hw), lib, work)

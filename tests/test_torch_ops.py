@@ -209,6 +209,32 @@ def test_cpu_tensors_take_plain_path_and_count_no_launch():
         "depth_to_space2": 0, "affine_warp": 0}
 
 
+@pytest.mark.parametrize("name", ["modconv3x3", "fused_leaky_relu", "upfirdn2d",
+                                  "depth_to_space2", "affine_warp"])
+def test_wrappers_refuse_strided_input_and_return_contiguous(name):
+    """The kernels take contiguous operands and write contiguous outputs; on
+    the CPU each wrapper holds its caller to the same rule (a channel slice
+    is refused, not copied) and its plain version keeps the output layout,
+    so a chain of wrappers that runs on the CPU runs on the card."""
+    rng = np.random.RandomState(12)
+    x = torch.from_numpy(rng.randn(2, 8, 10, 9).astype(np.float32))
+    k2 = torch.outer(upfirdn2d.make_kernel([1, 3, 3, 1]),
+                     upfirdn2d.make_kernel([1, 3, 3, 1]))
+    w = torch.from_numpy(rng.randn(3, 3, 4, 4).astype(np.float32))
+    coef = torch.tensor([[0.6, 0.1, 0.3, -0.1, 0.5, -0.2]] * 2)
+    call = {
+        "modconv3x3": lambda t: kernels.modconv3x3(t, w),
+        "fused_leaky_relu": lambda t: kernels.fused_leaky_relu(t),
+        "upfirdn2d": lambda t: kernels.upfirdn2d(t, k2, down=(2, 2),
+                                                 pad=(1, 1, 1, 1)),
+        "depth_to_space2": lambda t: kernels.depth_to_space2(t, phase_minor=True),
+        "affine_warp": lambda t: kernels.affine_warp(t, coef, (7, 6)),
+    }[name]
+    with pytest.raises(ValueError, match="contiguous"):
+        call(x[:, 2:6])
+    assert call(x[:, 2:6].contiguous()).is_contiguous()
+
+
 def test_port_imports_no_jax():
     """The port package never imports jax (checked in a fresh interpreter,
     and by a search of its sources and chip_smoke.py for the imports)."""

@@ -347,7 +347,8 @@ def fused_leaky_relu(x, bias=None, negative_slope: float = 0.2,
 
 def upfirdn2d_plain(x, k2d, up=(1, 1), down=(1, 1), pad=(0, 0, 0, 0)):
     """Plain version of `upfirdn2d`: zero-stuff, pad/crop, depthwise conv
-    with the flipped taps, subsample (the reference's upfirdn2d_native)."""
+    with the flipped taps, subsample (the reference's upfirdn2d_native);
+    contiguous, as the kernel's output is."""
     up_x, up_y = up
     down_x, down_y = down
     px0, px1, py0, py1 = pad
@@ -361,7 +362,7 @@ def upfirdn2d_plain(x, k2d, up=(1, 1), down=(1, 1), pad=(0, 0, 0, 0)):
           max(-px0, 0):t.shape[3] - max(-px1, 0)]
     wk = torch.flip(k2d, (0, 1)).reshape(1, 1, kh, kw).to(x.device, x.dtype)
     t = F.conv2d(t, wk)[:, :, ::down_y, ::down_x]
-    return t.reshape(n, c, t.shape[2], t.shape[3])
+    return t.reshape(n, c, t.shape[2], t.shape[3]).contiguous()
 
 
 def _upfirdn2d_out_hw(h, w, kh, kw, up, down, pad):
@@ -525,12 +526,13 @@ def affine_warp_grid(coef, out_hw, in_hw):
 def affine_warp_plain(img, coef, out_hw):
     """Plain version of `affine_warp`: F.grid_sample (bilinear, zeros,
     align_corners=False) on the grid of the same affine, in at least float32,
-    cast back to img's dtype."""
+    cast back to img's dtype, contiguous as the kernel's output is (the CPU
+    grid_sample may return another layout)."""
     dt = torch.promote_types(img.dtype, torch.float32)
     grid = affine_warp_grid(coef, out_hw, img.shape[2:]).to(dt)
     out = F.grid_sample(img.to(dt), grid, mode="bilinear",
                         padding_mode="zeros", align_corners=False)
-    return out.to(img.dtype)
+    return out.to(img.dtype).contiguous()
 
 
 def _affine_warp_cuda(img, coef, out_hw):

@@ -57,7 +57,7 @@ def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
     kernel = torch.as_tensor(kernel, dtype=torch.float32)
     if kernel.ndim == 1:
         kernel = torch.outer(kernel, kernel)
-    return kernels.upfirdn2d(x.contiguous(), kernel, up=_pairify(up),
+    return kernels.upfirdn2d(x, kernel, up=_pairify(up),
                              down=_pairify(down), pad=_pad4(pad))
 
 

@@ -126,8 +126,7 @@ def _affine_warp(img, theta, out_hw):
     plain version (F.grid_sample) on the CPU; coordinates stay float32
     whatever the image dtype."""
     coef = _pixel_affine_coefs(theta.float(), out_hw, img.shape[2:])
-    return kernels.affine_warp(img.contiguous(), coef.to(img.device).contiguous(),
-                               out_hw)
+    return kernels.affine_warp(img, coef.to(img.device), out_hw)
 
 
 def warp_theta(G_inv, hw, hw2x, pad_k: int = SYM6.shape[0] // 4):

@@ -371,7 +371,7 @@ def train_d_step(state: TrainDState, frozen: dict, parsing, psp, psp_cfg,
     full = torch.cat([batch_data["real_input1024"],
                       batch_data["mask1024"] * synth.PARSING_WEIGHT], dim=1)
     crop_input = synth.down(synth.down(
-        full[:, :, off_w:off_w + cs, off_h:off_h + cs]))
+        full[:, :, off_w:off_w + cs, off_h:off_h + cs].contiguous()))
     crop_fake = fake[:, :, off_w:off_w + cs, off_h:off_h + cs]
     fake_crop = _up(run_vt(_cast(crop_input, cdt)))
     g_tmp = (fake_crop - crop_fake).square().mean() * tmp_ramp * tcfg.tmp_loss

@@ -98,7 +98,7 @@ def synth_train_batch(draws, vt, cfg: VToonifyConfig, parsing, psp, psp_cfg,
 
     imgs, _ = random_apply_affine(torch.cat([xc, xs], dim=1), aug_p,
                                   G=draws.affine, max_pad=aug_max_pad)
-    real_input1024 = imgs[:, 0:3]
+    real_input1024 = imgs[:, 0:3].contiguous()  # B3 takes contiguous planes
     real_output = imgs[:, 3:6]
     real_input512 = down(real_input1024)
     real_input256 = down(real_input512)
