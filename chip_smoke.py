@@ -421,6 +421,32 @@ def kernel_phase(dev):
     return summary
 
 
+def device_profile(fn, table_name):
+    """One fn() under torch.profiler: host wall, device busy time (the
+    device-side events, kernels and memcpy/memset, each counted once), B1's
+    share of it, and the top device ops; the full table goes to OUT_DIR."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    avgs = prof.key_averages()
+    key = ("self_device_time_total" if hasattr(avgs[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    evts = sorted((e for e in avgs if str(getattr(e, "device_type", "")).endswith("CUDA")),
+                  key=lambda e: getattr(e, key), reverse=True)
+    busy = sum(getattr(e, key) for e in evts) / 1e6
+    b1 = sum(getattr(e, key) for e in evts if "modconv3x3" in e.key) / 1e6
+    (OUT_DIR / table_name).write_text(avgs.table(sort_by=key, row_limit=60))
+    return {"wall_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall,
+            "b1_device_s": b1, "b1_share_of_device": b1 / busy if busy else 0.0,
+            "top_device_ops": [{"op": e.key[:120], "device_ms": getattr(e, key) / 1e3,
+                                "count": e.count} for e in evts[:15]]}
+
+
 # ---------------------------------------------------------------------------
 # serve: the flagship pipeline
 
@@ -534,6 +560,9 @@ def serve_phases(smi):
               "p50_ms_per_call": p50 * 1e3, "p50_ms_per_frame": p50 * 1e3 / batch,
               "fps": batch / p50, "p25_p75_ms_per_call": [p25 * 1e3, p75 * 1e3],
               "min_max_ms_per_call": [min(times) * 1e3, max(times) * 1e3],
+              "profile": device_profile(
+                  lambda: pipe_bf16.process_batch(frames, s_w, 0.5),
+                  f"serve_profile_b{batch}.txt"),
               "nvidia_smi": smi})
     emit({"phase": "timing_done", "seconds": time.perf_counter() - t0})
     del pipe_bf16, pipe_f32, pipe_cpu, vt_dev, parsing_dev
@@ -637,30 +666,9 @@ def train_phase(smi, compute_dtype, steps):
            "nvidia_smi": smi}
 
     if compute_dtype is not None:  # profile one more step: top device ops
-        from torch.profiler import ProfilerActivity, profile
-
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t1 = time.perf_counter()
-            run_step(state, mods, pcfg, inputs, cfg, dcfg, tcfg, False, generator=gen)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t1
-
-        key = ("self_device_time_total" if hasattr(prof.key_averages()[0],
-                                                    "self_device_time_total")
-               else "self_cuda_time_total")
-        # device-side events (kernels, memcpy/memset): each counted once
-        evts = sorted((e for e in prof.key_averages()
-                       if str(getattr(e, "device_type", "")).endswith("CUDA")),
-                      key=lambda e: getattr(e, key), reverse=True)
-        busy = sum(getattr(e, key) for e in evts) / 1e6
-        rec["profile"] = {"wall_s": wall, "device_busy_s": busy,
-                          "device_busy_share": busy / wall,
-                          "top_device_ops": [
-                              {"op": e.key[:120], "device_ms": getattr(e, key) / 1e3,
-                               "count": e.count} for e in evts[:15]]}
-        (OUT_DIR / "train_profile.txt").write_text(prof.key_averages().table(
-            sort_by=key, row_limit=60))
+        rec["profile"] = device_profile(
+            lambda: run_step(state, mods, pcfg, inputs, cfg, dcfg, tcfg, False,
+                             generator=gen), "train_profile.txt")
     emit(rec)
     launches = per_step[1]
     del state, mods

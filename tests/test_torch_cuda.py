@@ -52,6 +52,14 @@ def _close(got, want, dtype):
     (1, 16, 64, 8, 16, True, False),    # exact tiles, raw conv
     (3, 24, 96, 17, 33, False, True),   # folded form, partial Cout tile
     (1, 8, 3, 1, 1, True, True),        # single pixel
+    # bf16 runs the tensor-core kernel: 8x16 px tiles, 32-channel K chunks,
+    # BN of 32/64/128 output channels from Cout
+    (1, 40, 64, 16, 16, True, True),    # Cin not a multiple of 16 or 32
+    (2, 64, 72, 12, 20, False, True),   # Cout not a multiple of BN
+    (1, 512, 2048, 6, 10, True, True),  # the up conv's Cout = 4 * 512
+    (2, 96, 128, 28, 28, True, True),   # 28 x 28: ragged against the tile
+    (1, 48, 40, 17, 33, True, False),   # 17 x 33, raw conv with s and d
+    (3, 64, 96, 20, 24, True, True),    # batch 3 with s, d and bias
 ])
 def test_modconv3x3(dev, dtype, b, cin, cout, h, w, modulated, act):
     rng = np.random.RandomState(0)

@@ -1,7 +1,8 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
-// Every kernel computes in float32 and loads/stores its tensors in the
-// caller's dtype: float32 (dtype code 0) or bfloat16 (dtype code 1). Each
+// The kernels load and store their tensors in the caller's dtype: float32
+// (dtype code 0) or bfloat16 (dtype code 1), and compute in float32 (B1's
+// bfloat16 kernel multiplies bf16 on the tensor cores into float32). Each
 // exported C function launches on the caller's stream and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 #pragma once

@@ -5,23 +5,42 @@
 //   act(v)  = leaky_relu(v, slope) * gain      (only when bias is given)
 //
 // Replaces modconv3x3_fused_pallas / _modconv3x3_kernel
-// (vtoonify_tpu/ops/pallas_kernels.py). Stride 1, zero "same" padding,
-// NCHW activations, HWIO weights flattened to (9, Cin, Cout). s (B, Cin) and
-// d (B, Cout) are optional: without them this is the folded shared-style form
-// whose modulation and demodulation already sit in w.
+// (vtoonify_tpu/ops/pallas_kernels.py:214 / :152). Stride 1, zero "same"
+// padding, NCHW activations, HWIO weights flattened to (9, Cin, Cout). s
+// (B, Cin) and d (B, Cout) are optional: without them this is the folded
+// shared-style form whose modulation and demodulation already sit in w.
 //
-// What bounds it on the H100: at the main-path shapes (Cin x Cout up to
-// 512 x 2048, 32..1024 px) the conv does 2*9*Cin FLOPs per output element for
-// 4 bytes of output, so it is compute bound. This first version is an
-// implicit GEMM on the CUDA cores in float32 (no tensor cores yet): each block
-// computes an 8x16-pixel by 64-channel output tile, keeps a (BK channels x
-// 10x18) halo of the input and the matching 9 x BK x 64 weight slab in shared
-// memory so every loaded input value feeds 9 taps x 64 channels, and every
-// thread holds an 8-pixel x 4-channel accumulator tile in registers. The
-// modulation s is applied while the halo is loaded; d, bias, leaky-ReLU and
-// gain are applied to the accumulators before the single store, so the
-// pre-activation never goes to device memory. Ragged H, W, Cin and Cout edges
-// are masked, so no shape constraint beyond Cin, Cout >= 1.
+// Two kernels, chosen by dtype in vt_modconv3x3 below:
+// * bfloat16 -> modconv3x3_mma.cu: an implicit GEMM on the tensor cores
+//   (mma.sync m16n8k16, bf16 operands, f32 accumulators). A block owns an
+//   8 x 16 px by BN-channel output tile (BN 32/64/128 from Cout), 8 warps as
+//   4 (pixel rows) x 2 (channel halves), each warp two m16 fragments (one
+//   16-px row each) by BN/16 n8 fragments. K is walked as 32-channel chunks:
+//   a (10 x 18 px x 32 ch) halo, channel-minor, and a [tap][k][n] weight
+//   slab sit in shared memory, double-buffered (weights by cp.async, the
+//   halo through registers), so every tap is an offset into the halo; A
+//   fragments come by ldmatrix, B by ldmatrix.trans, both conflict-free by
+//   padding. The layout is spelled out in that file's note.
+// * float32 -> the CUDA-core kernel in this file: 8 x 16 px by 64 channels
+//   per block, a (8 ch x 10 x 18) halo and its 9 x 8 x 64 weight slab in
+//   shared memory, an 8-px x 4-channel fmaf accumulator tile per thread.
+//   The float32 path stays off the tensor cores on purpose: their float32
+//   input is TF32 (10-bit mantissa), and the float32 gates hold this kernel
+//   to exact float32 -- 1e-4 of its plain version on the card, the --tiny
+//   train step on the card against the CPU, float32 serving within 2 uint8
+//   LSB of the CPU. TF32 would break all three.
+// Both apply s while the halo is loaded and d, bias, leaky-ReLU and gain to
+// the accumulators before the single store, so the pre-activation never goes
+// to device memory. Ragged H, W, Cin and Cout edges are masked: no shape
+// constraint beyond Cin, Cout >= 1.
+//
+// What bounds B1 on the H100 (bf16, batch 1): the conv does 2*9*Cin*Cout
+// FLOPs per output pixel. At 64 px, 512 -> 512 that is 19.3 GFLOP against
+// 12.7 MB of input, weights and output: 19.5 us at 989 TFLOP/s against
+// 3.8 us at 3.35 TB/s, bound by operations. At 1024 px, 32 -> 32 it is the
+// same 19.3 GFLOP against 128 MB of activations: 40 us of bytes against
+// 19.5 us of operations, bound by bytes -- there the halo load and the
+// output store, not the mma, set the time.
 #include "common.cuh"
 
 namespace {
@@ -32,11 +51,10 @@ constexpr int BN = 64;   // output channels per block
 constexpr int BK = 8;    // input channels per shared-memory stage
 constexpr int THREADS = 256;
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-modconv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                  const T* __restrict__ s, const T* __restrict__ d,
-                  const T* __restrict__ bias, T* __restrict__ y, int cin,
+modconv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                  const float* __restrict__ s, const float* __restrict__ d,
+                  const float* __restrict__ bias, float* __restrict__ y, int cin,
                   int cout, int h, int wd, int tiles_w, float slope,
                   float gain) {
   __shared__ float xs[BK][TH + 2][TW + 2];
@@ -60,7 +78,7 @@ modconv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int k = 0; k < 4; ++k) acc[j][k] = 0.f;
 
   const size_t plane = (size_t)h * wd;
-  const T* xb = x + (size_t)b * cin * plane;
+  const float* xb = x + (size_t)b * cin * plane;
 
   for (int c0 = 0; c0 < cin; c0 += BK) {
     for (int i = tid; i < BK * (TH + 2) * (TW + 2); i += THREADS) {
@@ -71,8 +89,8 @@ modconv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int ix = ox0 + q - 1;
       float v = 0.f;
       if (c0 + c < cin && iy >= 0 && iy < h && ix >= 0 && ix < wd) {
-        v = vt::to_float(xb[(size_t)(c0 + c) * plane + (size_t)iy * wd + ix]);
-        if (s != nullptr) v *= vt::to_float(s[(size_t)b * cin + c0 + c]);
+        v = xb[(size_t)(c0 + c) * plane + (size_t)iy * wd + ix];
+        if (s != nullptr) v *= s[(size_t)b * cin + c0 + c];
       }
       xs[c][r][q] = v;
     }
@@ -82,7 +100,7 @@ modconv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int t = i / (BN * BK);
       float v = 0.f;
       if (c0 + c < cin && co0 + n < cout)
-        v = vt::to_float(w[((size_t)t * cin + c0 + c) * cout + co0 + n]);
+        v = w[((size_t)t * cin + c0 + c) * cout + co0 + n];
       ws[t][c][n] = v;
     }
     __syncthreads();
@@ -117,48 +135,52 @@ modconv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
   for (int k = 0; k < 4; ++k) {
     const int co = co0 + tn * 4 + k;
     if (co >= cout) continue;
-    const float dm = d != nullptr ? vt::to_float(d[(size_t)b * cout + co]) : 1.f;
-    const float bv = bias != nullptr ? vt::to_float(bias[co]) : 0.f;
-    T* yrow = y + ((size_t)b * cout + co) * plane + (size_t)oy * wd;
+    const float dm = d != nullptr ? d[(size_t)b * cout + co] : 1.f;
+    const float bv = bias != nullptr ? bias[co] : 0.f;
+    float* yrow = y + ((size_t)b * cout + co) * plane + (size_t)oy * wd;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int ox = ox0 + pcol + j;
       if (ox < wd) {
         float v = acc[j][k] * dm;
         if (bias != nullptr) v = vt::leaky_relu_gain(v + bv, slope, gain);
-        yrow[ox] = vt::from_float<T>(v);
+        yrow[ox] = v;
       }
     }
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* w, const void* s, const void* d,
-                   const void* bias, void* y, int b, int cin, int cout, int h,
-                   int wd, float slope, float gain, cudaStream_t stream) {
+cudaError_t launch_f32(const void* x, const void* w, const void* s,
+                       const void* d, const void* bias, void* y, int b, int cin,
+                       int cout, int h, int wd, float slope, float gain,
+                       cudaStream_t stream) {
   const int tiles_w = (wd + TW - 1) / TW;
   const int tiles_h = (h + TH - 1) / TH;
   const dim3 grid(tiles_h * tiles_w, (cout + BN - 1) / BN, b);
-  modconv3x3_kernel<T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const T*>(s), static_cast<const T*>(d),
-      static_cast<const T*>(bias), static_cast<T*>(y), cin, cout, h, wd,
+  modconv3x3_kernel<<<grid, THREADS, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(s), static_cast<const float*>(d),
+      static_cast<const float*>(bias), static_cast<float*>(y), cin, cout, h, wd,
       tiles_w, slope, gain);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+extern "C" int vt_modconv3x3_mma(const void* x, const void* w, const void* s,
+                                 const void* d, const void* bias, void* y,
+                                 int b, int cin, int cout, int h, int wd,
+                                 float slope, float gain, void* stream);
+
 extern "C" int vt_modconv3x3(const void* x, const void* w, const void* s,
                              const void* d, const void* bias, void* y, int b,
                              int cin, int cout, int h, int wd, float slope,
                              float gain, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == vt::kFloat32)
-    return launch<float>(x, w, s, d, bias, y, b, cin, cout, h, wd, slope,
-                         gain, st);
+    return launch_f32(x, w, s, d, bias, y, b, cin, cout, h, wd, slope, gain,
+                      static_cast<cudaStream_t>(stream));
   if (dtype == vt::kBFloat16)
-    return launch<__nv_bfloat16>(x, w, s, d, bias, y, b, cin, cout, h, wd,
-                                 slope, gain, st);
+    return vt_modconv3x3_mma(x, w, s, d, bias, y, b, cin, cout, h, wd, slope,
+                             gain, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

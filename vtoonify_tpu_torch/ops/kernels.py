@@ -5,7 +5,7 @@ Every TPU kernel of the JAX package (each function that reaches
 
 | # | TPU kernel (file:line) | computes | port |
 | --- | --- | --- | --- |
-| B1 | `modconv3x3_fused_pallas` :214 (`_modconv3x3_kernel` :152, call :256) | `lrelu(d * conv3x3(x * s, w) + b) * sqrt2`, stride 1, same pad | `modconv3x3`, csrc/modconv3x3.cu |
+| B1 | `modconv3x3_fused_pallas` :214 (`_modconv3x3_kernel` :152, call :256) | `lrelu(d * conv3x3(x * s, w) + b) * sqrt2`, stride 1, same pad | `modconv3x3`, csrc/modconv3x3.cu (float32), csrc/modconv3x3_mma.cu (bfloat16) |
 | B2 | `fused_leaky_relu_pallas` :44 (`_fused_lrelu_kernel` :37, call :58) | `(x + b)` -> lrelu 0.2 -> x sqrt2 | `fused_leaky_relu`, csrc/fused_lrelu.cu |
 | B3 | `blur_same_pallas` :109 (`_blur_kernel` :79, call :122) | separable same-size FIR, generalised to upfirdn2d | `upfirdn2d`, csrc/upfirdn2d.cu |
 | B4 | `depth_to_space2_pallas` :600 (`_d2s2_kernel` :591, call :617) | (B,H,W,4C) -> (B,2H,2W,C) | `depth_to_space2` (+ phase-minor), csrc/d2s2.cu |
@@ -26,8 +26,11 @@ their plain version under `enable_grad` and call `torch.autograd.grad`; B2,
 B3 and B4 have hand-derived backwards (lrelu' from the saved output, the
 transposed upfirdn2d, the inverse permutation). No double backward.
 
-Layouts: activations are NCHW and contiguous; the kernels compute in float32
-and load and store float32 or bfloat16.
+Layouts and arithmetic: activations are NCHW and contiguous, in float32 or
+bfloat16. B2-B5 compute in float32 and load and store the caller's dtype.
+B1 has one kernel per dtype: bfloat16 multiplies bf16 operands on the tensor
+cores (mma.sync) into float32 accumulators; float32 stays on the CUDA cores
+in exact float32 (TF32 tensor cores would miss the float32 tolerances).
 """
 
 from __future__ import annotations
@@ -48,8 +51,8 @@ MAX_TAPS = 12  # upfirdn2d filter taps per axis (csrc/upfirdn2d.cu MAX_TAPS)
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-_CU_FILES = ("modconv3x3.cu", "fused_lrelu.cu", "upfirdn2d.cu", "d2s2.cu",
-             "affine_warp.cu")
+_CU_FILES = ("modconv3x3.cu", "modconv3x3_mma.cu", "fused_lrelu.cu",
+             "upfirdn2d.cu", "d2s2.cu", "affine_warp.cu")
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
