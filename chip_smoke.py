@@ -10,7 +10,8 @@ with random weights from a seeded torch.Generator:
 
 * serve: the flagship VToonify-D frame graph (BiSeNet -> encoder -> fusion ->
   DualStyleGAN, 256 px -> 1024 px) behind ToonifyPipeline.process_batch,
-  checked against the same modules on the CPU in float32, and timed;
+  checked against the same modules on the CPU in float32, timed at batch 1
+  and 16, and one call of each profiled (device busy share, B1's share);
 * train: the flagship VToonify-D stage-2 training step (train_d_step:
   teacher synthesis with the augment, D step, G step with LPIPS and the
   temporal crop, EMA) at batch 2 in bfloat16 and float32, timed and
@@ -84,7 +85,9 @@ D_BLUR = [(256, 128), (128, 256), (64, 512), (32, 512), (16, 512), (8, 512)]
 SYNTH_DOWN = [(3, 1024), (3, 512), (19, 512), (22, 896), (22, 448)]
 AUG = 4120                                         # x2 augment plane (1024 px)
 SOURCES = {
-    "modconv3x3": ("vtoonify_tpu_torch/csrc/modconv3x3.cu",
+    # bf16 (the summary dtype) runs the tensor-core kernel; f32 runs the
+    # CUDA-core kernel in csrc/modconv3x3.cu, which dispatches both
+    "modconv3x3": ("vtoonify_tpu_torch/csrc/modconv3x3_mma.cu",
                    "vtoonify_tpu/ops/pallas_kernels.py:214"),
     "fused_leaky_relu": ("vtoonify_tpu_torch/csrc/fused_lrelu.cu",
                          "vtoonify_tpu/ops/pallas_kernels.py:44"),

@@ -278,11 +278,18 @@ modconv3x3_mma_kernel(const __nv_bfloat16* __restrict__ x,
     }
   }
   __syncthreads();
-  for (int i = tid; i < BN * TH * TW; i += THREADS) {
-    const int n = i / (TH * TW), p = i % (TH * TW);
+  // 8 px (16 bytes) a thread where W % 8 == 0 keeps them aligned, else 1 px
+  const bool vec_y = wd % 8 == 0;
+  for (int i = tid; i < BN * TH * TW / 8; i += THREADS) {
+    const int n = i / (TH * TW / 8), p = i % (TH * TW / 8) * 8;
     const int oy = oy0 + p / TW, ox = ox0 + p % TW, co = co0 + n;
-    if (co < cout && oy < h && ox < wd)
-      y[((size_t)b * cout + co) * plane + (size_t)oy * wd + ox] = os[n * OP + p];
+    if (co >= cout || oy >= h) continue;
+    __nv_bfloat16* dst = y + ((size_t)b * cout + co) * plane + (size_t)oy * wd + ox;
+    if (vec_y && ox + 8 <= wd) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(os + n * OP + p);
+    } else {
+      for (int j = 0; j < 8 && ox + j < wd; ++j) dst[j] = os[n * OP + p + j];
+    }
   }
 }
 
