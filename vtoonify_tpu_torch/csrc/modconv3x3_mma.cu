@@ -36,9 +36,19 @@
 // 8*(lane/16).
 // Epilogue: d, bias, leaky-ReLU and gain on the f32 accumulators, one bf16
 // rounding, the tile staged through shared memory as [n][128 px] so each
-// channel's 16-px rows are stored with consecutive threads on consecutive
-// addresses of the NCHW output. Ragged H, W, Cin and Cout: masked loads give
-// zeros, stores are masked; no shape constraint beyond Cin, Cout >= 1.
+// channel's 16-px rows go to the NCHW output as two 16-byte stores (where
+// W % 8 == 0; else one element at a time). Ragged H, W, Cin and Cout: masked
+// loads give zeros, stores are masked; no shape constraint beyond Cin,
+// Cout >= 1.
+//
+// Occupancy: ptxas gives every BN 226-254 registers a thread, so one block
+// (8 warps) runs on an SM; capping at 128 for two blocks spills and is
+// slower. Grid (tiles x Cout/BN) at the ten batch-1 serving shapes, against
+// 132 SMs: 64 px 512->512: 32 x 4 = 128; 128 px 256->256: 128 x 2 = 256;
+// 256 px 128->128: 512; 512 px 64->64 (BN 64): 2048; 1024 px 32->32
+// (BN 32): 8192; up convs 32 px 512->2048: 8 x 16 = 128; 64 px 512->1024:
+// 32 x 8 = 256; 128 px 256->512: 512; 256 px 128->256: 1024; 512 px
+// 64->128: 2048.
 #include "common.cuh"
 
 namespace {
