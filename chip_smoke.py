@@ -1,6 +1,8 @@
 """Chip smoke test of the PyTorch + CUDA port (vtoonify_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels upfirdn2d,depth_to_space2   # those alone
+    python3 chip_smoke.py --paths   # serving and bf16 training alone
 
 Builds the port's five hand-written kernels from vtoonify_tpu_torch/csrc
 with nvcc (sm_90a, one nvcc per source, in parallel), checks each against its
@@ -132,6 +134,19 @@ def cuda_ms(fn, reps):
     return float(np.median(times))
 
 
+def host_ms(fn, reps):
+    """Host time of one fn() call in ms, mean over `reps` calls queued
+    without a synchronize: where it exceeds the device time, cuda_ms reads
+    the host's time, not the kernel's."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
 def bound_ms(nbytes, flops, dtype):
     """The least time the card could take: max(bytes / HBM rate, FLOPs /
     peak for the dtype), and which of the two bounds it."""
@@ -241,15 +256,10 @@ def kernel_cases(rng, dev):
             kh, kw = k2d.shape
             oh, ow = K._upfirdn2d_out_hw(shape[2], shape[3], kh, kw, up, down, pad)
             out_n = shape[0] * shape[1] * oh * ow
-            lib = None
-            if up == down == (1, 1) and pad[0] == pad[1] == pad[2] == pad[3]:
-                wk = torch.flip(k2d, (0, 1)).to(dev, dt).expand(shape[1], 1, kh, kw)
-                wk = wk.contiguous()
-                lib = lambda: F.conv2d(a, wk, padding=pad[0], groups=shape[1])  # noqa: E731
             work = (nbytes(dt, a) + out_n * (torch.finfo(dt).bits // 8),
                     2 * out_n * kh * kw / (up[0] * up[1]))
             return (lambda: K.upfirdn2d(a, *args), lambda: K.upfirdn2d_plain(a, *args),
-                    lib, work)
+                    fir_library(a, *args), work)
         cases.append(Case("upfirdn2d", label, make, summary, reps))
 
     k1 = make_kernel([1, 3, 3, 1])
@@ -327,6 +337,32 @@ def kernel_cases(rng, dev):
     return cases
 
 
+def fir_library(a, k2d, up, down, pad):
+    """One PyTorch call on `a` (or a view of it) that computes upfirdn2d(a,
+    k2d, up, down, pad), or None: a depthwise F.conv_transpose2d with stride
+    `up` (the taps as they are, padding kh - 1 - pad0) where only up is 2; a
+    depthwise F.conv2d with stride `down` (flipped taps) on the view that the
+    negative pads crop, where up is 1 and the positive pads are symmetric.
+    The yardstick of B3's time; the port never calls it."""
+    c = a.shape[1]
+    kh, kw = k2d.shape
+    px0, px1, py0, py1 = pad
+    if down == (1, 1) and up != (1, 1):
+        w = k2d.to(a.device, a.dtype).expand(c, 1, kh, kw).contiguous()
+        padding = (kh - 1 - py0, kw - 1 - px0)
+        if min(padding) < 0:
+            return None
+        return lambda: F.conv_transpose2d(a, w, stride=(up[1], up[0]),  # noqa: E731
+                                          padding=padding, groups=c)
+    if up != (1, 1) or max(px0, 0) != max(px1, 0) or max(py0, 0) != max(py1, 0):
+        return None
+    view = a[:, :, max(-py0, 0):a.shape[2] - max(-py1, 0),
+             max(-px0, 0):a.shape[3] - max(-px1, 0)]
+    w = torch.flip(k2d, (0, 1)).to(a.device, a.dtype).expand(c, 1, kh, kw).contiguous()
+    return lambda: F.conv2d(view, w, stride=(down[1], down[0]),  # noqa: E731
+                            padding=(max(py0, 0), max(px0, 0)), groups=c)
+
+
 def backward_cases(rng, dev):
     """(kernel, label, kernel fn, plain fn, inputs): each Function's
     gradients on the card vs torch.autograd through the plain version, at one
@@ -365,13 +401,18 @@ def backward_cases(rng, dev):
     ]
 
 
-def kernel_phase(dev):
+def kernel_phase(dev, only=None):
+    """Every kernel case (or those of the kernels in `only`) against its
+    plain version, timed beside it, its library call and its bound."""
     t0 = time.perf_counter()
+    names = [n for n in SOURCES if only is None or n in only]
     summary = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                       "bound_ms": 0.0, "library_ms": None, "bytes": 0, "flops": 0}
-               for name in SOURCES}
+               for name in names}
     records = []
     for case in kernel_cases(np.random.RandomState(SEED), dev):
+        if case.name not in summary:
+            continue
         for dtype in ("float32", "bfloat16"):
             kern, plain, lib, (nb, fl) = case.make(getattr(torch, dtype))
             got, want = kern().float(), plain().float()
@@ -380,18 +421,31 @@ def kernel_phase(dev):
             scale = max(1.0, want.abs().max().item())
             tol = (TOL_WARP_F32 if case.name == "affine_warp" and dtype == "float32"
                    else TOL[dtype]) * scale
+            lib_err = None
+            if lib is not None and case.name == "upfirdn2d":
+                # the yardstick computes the same function: checked once
+                lib_out = lib().float()
+                check(lib_out.shape == want.shape, f"{case.label}: library call "
+                      f"shape {tuple(lib_out.shape)} != {tuple(want.shape)}")
+                lib_err = (lib_out - want).abs().max().item()
+                del lib_out
             bms, by = bound_ms(nb, fl, dtype)
             rec = {"phase": "kernel", "kernel": case.name, "shape": case.label,
                    "dtype": dtype, "max_abs_err": err, "tol": tol,
                    "finite": bool(torch.isfinite(got).all()),
                    "ms": cuda_ms(kern, case.reps), "plain_ms": cuda_ms(plain, case.reps),
                    "library_ms": None if lib is None else cuda_ms(lib, case.reps),
+                   "library_max_abs_err": lib_err,
+                   "host_ms": host_ms(kern, case.reps),
+                   "library_host_ms": None if lib is None else host_ms(lib, case.reps),
                    "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": fl}
             del got, want
             records.append(rec)
             emit(rec)
             check(rec["finite"] and err <= tol,
                   f"{case.name} {case.label} {dtype}: max|kernel - plain| {err} > {tol}")
+            check(lib_err is None or lib_err <= tol,
+                  f"{case.name} {case.label} {dtype}: library call off by {lib_err}")
             sm = summary[case.name]
             sm["max_abs_err"] = max(sm["max_abs_err"], err)
             if case.summary and dtype == "bfloat16":
@@ -403,6 +457,8 @@ def kernel_phase(dev):
         sm["bound_by"] = bound_ms(sm["bytes"], sm["flops"], "bfloat16")[1]
 
     for name, label, kern, plain, inputs in backward_cases(np.random.RandomState(1), dev):
+        if name not in summary:
+            continue
         grads = []
         for fn in (kern, plain):
             leaves = [x.detach().clone().requires_grad_() for x in inputs]
@@ -427,7 +483,11 @@ def kernel_phase(dev):
 def device_profile(fn, table_name):
     """One fn() under torch.profiler: host wall, device busy time (the
     device-side events, kernels and memcpy/memset, each counted once), B1's
-    share of it, and the top device ops; the full table goes to OUT_DIR."""
+    share of it, B3's and B4's device time, the host time per call of B3's
+    forward (the wrapper's `vt::upfirdn2d` range, inside `_UpFirDn2d` where
+    autograd records it) and backward (a copy to the device that waits on it
+    shows there), the pageable host-to-device copies, and the top
+    device ops; the full table goes to OUT_DIR."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -439,13 +499,25 @@ def device_profile(fn, table_name):
     avgs = prof.key_averages()
     key = ("self_device_time_total" if hasattr(avgs[0], "self_device_time_total")
            else "self_cuda_time_total")
-    evts = sorted((e for e in avgs if str(getattr(e, "device_type", "")).endswith("CUDA")),
+    # device-side events, without the device spans of user annotations
+    # (record_function ranges such as Adam's step and vt::upfirdn2d), which
+    # would count their kernels twice
+    on_dev = [str(getattr(e, "device_type", "")).endswith("CUDA") for e in avgs]
+    evts = sorted((e for e, d in zip(avgs, on_dev)
+                   if d and not getattr(e, "is_user_annotation", False)),
                   key=lambda e: getattr(e, key), reverse=True)
     busy = sum(getattr(e, key) for e in evts) / 1e6
     b1 = sum(getattr(e, key) for e in evts if "modconv3x3" in e.key) / 1e6
     (OUT_DIR / table_name).write_text(avgs.table(sort_by=key, row_limit=60))
     return {"wall_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall,
             "b1_device_s": b1, "b1_share_of_device": b1 / busy if busy else 0.0,
+            **{f"{b}_device_ms": sum(getattr(e, key) for e in evts if kernel in e.key)
+               / 1e3 for b, kernel in (("b3", "upfirdn2d_kernel"), ("b4", "d2s2_kernel"))},
+            "b3_host_ms_per_call": {  # the wrapper's forward, and the backward
+                e.key: e.cpu_time_total / e.count / 1e3 for e, d in zip(avgs, on_dev)
+                if not d and e.count and (e.key == "vt::upfirdn2d" or "UpFirDn2d" in e.key)},
+            "htod_pageable_copies": sum(e.count for e in evts
+                                        if "HtoD (Pageable" in e.key),
             "top_device_ops": [{"op": e.key[:120], "device_ms": getattr(e, key) / 1e3,
                                 "count": e.count} for e in evts[:15]]}
 
@@ -785,6 +857,21 @@ def main():
           "kernel_library": str(lib.relative_to(K.BUILD_DIR.parent.parent)),
           "built_from_source": built, "build_and_load_s": time.perf_counter() - t0})
 
+    if len(sys.argv) == 3 and sys.argv[1] == "--kernels":
+        # a quick check of some kernels alone: their cases and summary, no
+        # main path and no result line
+        only = sys.argv[2].split(",")
+        check(set(only) <= set(SOURCES), f"--kernels takes names from {list(SOURCES)}")
+        emit({"kernels_only": kernel_phase(dev, only)})
+        return
+    if sys.argv[1:] == ["--paths"]:
+        # the serving and bf16 training paths alone, timed and profiled (an
+        # A/B of two trees runs this in each); no result line
+        serve_phases(smi)
+        train_phase(smi, "bfloat16", steps=3)
+        return
+    check(len(sys.argv) == 1,
+          "usage: chip_smoke.py [--kernels NAME[,NAME...] | --paths]")
     summary = kernel_phase(dev)
     launches_serve = serve_phases(smi)
     launches_train = train_phase(smi, "bfloat16", steps=3)

@@ -3,8 +3,10 @@
 Marked `cuda`; every test skips where torch sees no GPU (decided inside the
 fixture, never at import). The shapes here are the awkward ones the main path
 does not reach: ragged tiles, channel counts off the kernel's tile sizes,
-signed pads and 12-tap filters, both depth-to-space orders, 1-byte elements,
-warps of non-square images onto ragged outputs partly outside the image; and
+signed pads and 12-tap filters, every up/down pair, rows on and off the
+16-byte vector, more than 65535 planes, both depth-to-space orders, 1-byte
+elements, warps of non-square images onto ragged outputs partly outside the
+image; and
 each autograd Function's backward on the card. The main-path shapes are
 checked by chip_smoke.py. Run on a machine with an H100 (it has no
 JAX, so skip the suite's conftest):
@@ -83,21 +85,39 @@ def test_fused_leaky_relu(dev, dtype, shape, with_bias):
            kernels.fused_leaky_relu_plain(x, bias), dtype)
 
 
+_UP_DOWN = [(u, d) for u in ((1, 1), (2, 1), (1, 2), (2, 2))
+            for d in ((1, 1), (2, 1), (1, 2), (2, 2))]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kt,up,down,pad", [
-    (4, (2, 2), (1, 1), (2, 1, 2, 1)),    # ToRGB's upsample_2x
-    (4, (1, 1), (1, 1), (2, 1, 2, 1)),    # blur
-    (4, (1, 1), (2, 2), (1, 1, 1, 1)),    # downsample_2x
-    (3, (2, 1), (1, 2), (-1, 2, 0, -1)),  # per-axis, negative pads
-    (8, (2, 2), (2, 2), (3, 4, 4, 3)),    # 8 taps
-    (12, (2, 2), (1, 1), (6, 5, -2, 7)),  # widest taps, signed pads
-    ((1, 12), (2, 1), (1, 1), (6, 5, 0, 0)),       # augment SYM6 x-up
-    ((12, 1), (1, 1), (1, 2), (0, 0, -1, -1)),     # augment SYM6 y-down
-    ((12, 5), (1, 2), (2, 1), (-3, -1, 4, -2)),    # mixed, negative pads
+@pytest.mark.parametrize("shape,kt,up,down,pad", [
+    ((2, 3, 19, 22), 4, (2, 2), (1, 1), (2, 1, 2, 1)),    # ToRGB's upsample_2x
+    ((2, 3, 19, 22), 4, (1, 1), (1, 1), (2, 1, 2, 1)),    # blur
+    ((2, 3, 19, 22), 4, (1, 1), (2, 2), (1, 1, 1, 1)),    # downsample_2x
+    ((2, 3, 19, 22), 3, (2, 1), (1, 2), (-1, 2, 0, -1)),  # per-axis, negative pads
+    ((2, 3, 19, 22), 8, (2, 2), (2, 2), (3, 4, 4, 3)),    # 8 taps
+    ((2, 3, 19, 22), 12, (2, 2), (1, 1), (6, 5, -2, 7)),  # widest taps, signed pads
+    ((2, 3, 19, 22), (1, 12), (2, 1), (1, 1), (6, 5, 0, 0)),     # augment SYM6 x-up
+    ((2, 3, 19, 22), (12, 1), (1, 1), (1, 2), (0, 0, -1, -1)),   # augment SYM6 y-down
+    ((2, 3, 19, 22), (12, 5), (1, 2), (2, 1), (-3, -1, 4, -2)),  # mixed, negative pads
+    # every (up, down) pair the wrapper admits, on a 17 x 33 plane (ragged
+    # against the tiles' 8-row and 32-column steps), signed pads
+    *[((1, 2, 17, 33), 4, u, d, (2, -1, -1, 2)) for u, d in _UP_DOWN],
+    # 2060 x 28 planes (the augment's height, a width off the 16-byte vector)
+    ((1, 2, 2060, 28), (1, 12), (2, 1), (1, 1), (6, 5, 0, 0)),
+    ((1, 2, 2060, 28), (12, 1), (1, 2), (1, 1), (0, 0, 6, 5)),
+    ((1, 2, 2060, 28), (12, 5), (1, 1), (1, 2), (-1, 3, -1, -1)),
+    ((1, 2, 2060, 28), 4, (2, 2), (1, 1), (2, 1, 2, 1)),
+    # rows on the 16-byte vector in and out (16-byte loads and stores)
+    ((2, 2, 24, 64), (12, 1), (1, 2), (1, 1), (0, 0, 6, 5)),
+    ((2, 2, 40, 128), (1, 12), (1, 1), (2, 1), (-1, -1, 0, 0)),
+    ((1, 3, 33, 256), 4, (1, 1), (1, 1), (2, 2, 2, 2)),
+    # more than 65535 planes (the grid's z dimension folds into a loop)
+    ((1, 65540, 2, 3), 4, (2, 2), (1, 1), (2, 1, 2, 1)),
 ])
-def test_upfirdn2d(dev, dtype, kt, up, down, pad):
+def test_upfirdn2d(dev, dtype, shape, kt, up, down, pad):
     rng = np.random.RandomState(2)
-    x = _rand(rng, 2, 3, 19, 22).to(dev, dtype)
+    x = _rand(rng, *shape).to(dev, dtype)
     kt = (kt, kt) if isinstance(kt, int) else kt
     k = torch.from_numpy(rng.rand(*kt).astype(np.float32))
     _close(kernels.upfirdn2d(x, k, up, down, pad),
@@ -106,8 +126,14 @@ def test_upfirdn2d(dev, dtype, kt, up, down, pad):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8])
 @pytest.mark.parametrize("phase_minor", [False, True])
-def test_depth_to_space2(dev, dtype, phase_minor):
-    x = torch.arange(2 * 12 * 5 * 7, device=dev).reshape(2, 12, 5, 7)
+@pytest.mark.parametrize("shape", [
+    (2, 12, 5, 7),         # odd width: single-element words
+    (2, 8, 3, 28),         # the temporal crop's 28 px rows: 8-byte bf16 words
+    (1, 16, 4, 32),        # rows on the 16-byte vector for every dtype
+    (2, 4 * 32770, 1, 1),  # more than 65535 planes of 1 x 1 input pixels
+])
+def test_depth_to_space2(dev, dtype, phase_minor, shape):
+    x = torch.arange(int(np.prod(shape)), device=dev).reshape(shape)
     x = (x % 251).to(dtype)
     got = kernels.depth_to_space2(x, phase_minor)
     assert torch.equal(got, kernels.depth_to_space2_plain(x, phase_minor))
@@ -193,6 +219,8 @@ def test_launch_counts_and_refusals(dev):
         kernels.upfirdn2d(x, torch.ones(4, 4), up=(4, 4))
     with pytest.raises(ValueError):
         kernels.upfirdn2d(x, torch.ones(1, 13))
+    with pytest.raises(ValueError, match="on the CPU"):  # taps go by value
+        kernels.upfirdn2d(x, torch.ones(4, 4, device=dev), pad=(2, 1, 2, 1))
     with pytest.raises(ValueError):  # float64 coefficients
         kernels.affine_warp(x, torch.zeros(1, 6, dtype=torch.float64, device=dev),
                             (3, 3))

@@ -235,6 +235,65 @@ def test_wrappers_refuse_strided_input_and_return_contiguous(name):
     assert call(x[:, 2:6].contiguous()).is_contiguous()
 
 
+def test_upfirdn2d_refuses_taps_off_the_cpu():
+    """B3 takes its taps by value from the host: taps on any other device
+    raise on every device, before any launch (a `meta` tensor stands in for
+    the card's here)."""
+    x = torch.zeros(1, 2, 8, 8)
+    k = torch.ones(4, 4, device="meta")
+    with pytest.raises(ValueError, match="on the CPU"):
+        kernels.upfirdn2d(x, k, up=(2, 2), pad=(2, 1, 2, 1))
+    with pytest.raises(ValueError, match="on the CPU"):
+        upfirdn2d.upfirdn2d(x, torch.ones(4, device="meta"), down=2, pad=(1, 1))
+
+
+def test_b3_callers_pass_host_float32_taps(monkeypatch):
+    """Every caller of B3 on the serving and training paths (to_rgb's skip
+    upsample, conv_layer's downsample blur in D, synth.down, the augment's
+    SYM6 passes in both dtypes) hands it CPU float32 taps: recorded through
+    the wrapper on a tiny configuration. The augment's taps are SYM6 rounded
+    through the image dtype on the host."""
+    from vtoonify_tpu_torch.models import vtoonify as V
+    from vtoonify_tpu_torch.models.bisenet import init_bisenet
+    from vtoonify_tpu_torch.pipeline.toonify import ToonifyPipeline
+    from vtoonify_tpu_torch.train import augment, synth
+
+    seen = []
+    real = kernels.upfirdn2d
+
+    def recording(x, k2d, *a, **kw):
+        seen.append(k2d)
+        return real(x, k2d, *a, **kw)
+
+    monkeypatch.setattr(kernels, "upfirdn2d", recording)
+    cfg = V.VToonifyConfig(in_size=32, out_size=64, channel_multiplier=1,
+                           channel_max=32, num_res_layers=1)
+    g = torch.Generator().manual_seed(0)
+    vt, parsing = V.init_vtoonify(cfg, g), init_bisenet(generator=g)
+    dcfg = V.CondDiscriminatorConfig(size=64, channel_multiplier=1, channel_max=32,
+                                     use_condition=True, style_num=2)
+    d = V.init_cond_discriminator(dcfg, g)
+    pipe = ToonifyPipeline(vt, cfg, parsing, dtype=torch.float32, device="cpu")
+    pipe.process_image(np.zeros((32, 32, 3), np.uint8),
+                       np.zeros((1, cfg.n_latent, 512), np.float32), 0.5)
+    n_calls = [len(seen)]
+    V.cond_discriminator_apply(d, dcfg, torch.zeros(2, 3, 64, 64),
+                               torch.zeros(2, 1), torch.tensor([0, 1]))
+    n_calls.append(len(seen))
+    synth.down(torch.zeros(1, 3, 16, 16, dtype=torch.bfloat16))
+    n_calls.append(len(seen))
+    for dt in (torch.float32, torch.bfloat16):
+        augment.random_apply_affine(torch.zeros(1, 3, 16, 16, dtype=dt), 0.2,
+                                    G=torch.eye(3)[None], max_pad=8)
+    assert 0 < n_calls[0] < n_calls[1] < n_calls[2] == len(seen) - 8
+    assert all(k.device.type == "cpu" and k.dtype == torch.float32 for k in seen)
+    sym6_bf16 = augment.SYM6.to(torch.bfloat16).float()
+    for k, want in zip(seen[-4:], (sym6_bf16[None, :], sym6_bf16[:, None],
+                                   sym6_bf16.flip(0)[None, :],
+                                   sym6_bf16.flip(0)[:, None])):
+        assert torch.equal(k, want)
+
+
 def test_port_imports_no_jax():
     """The port package never imports jax (checked in a fresh interpreter,
     and by a search of its sources and chip_smoke.py for the imports)."""

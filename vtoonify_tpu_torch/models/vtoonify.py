@@ -86,9 +86,12 @@ class Fusion(nn.Module):
 def fusion_apply(p: Fusion, f_G, f_E, d_s):
     b, c = f_G.shape[:2]
     # the (f32) degree scalar is cast to the activation dtype first, so a
-    # bf16 graph stays bf16 (JAX models/vtoonify.py:97-100)
-    label = (torch.zeros((b, 1), dtype=f_G.dtype, device=f_G.device)
-             + torch.as_tensor(d_s, device=f_G.device).to(f_G.dtype))
+    # bf16 graph stays bf16 (JAX models/vtoonify.py:97-100); a Python degree
+    # is filled on the device, since copying a host scalar there would wait
+    # on it
+    deg = (torch.as_tensor(d_s, device=f_G.device) if torch.is_tensor(d_s)
+           else torch.full((), d_s, dtype=torch.float32, device=f_G.device))
+    label = torch.zeros((b, 1), dtype=f_G.dtype, device=f_G.device) + deg.to(f_G.dtype)
     label = F.leaky_relu(L.linear_torch(p.linear[0], label), 0.2)
     label = F.leaky_relu(L.linear_torch(p.linear[1], label), 0.2)
     # cat[f_G, |f_G - f_E|] -> AdaIN -> conv, with the per-channel instance

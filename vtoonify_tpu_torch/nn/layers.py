@@ -27,6 +27,7 @@ hold one merged weight).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
@@ -39,6 +40,32 @@ from vtoonify_tpu_torch.ops.fused_act import fused_leaky_relu
 from vtoonify_tpu_torch.ops.upfirdn2d import blur, make_kernel, upsample_2x
 
 BLUR_KERNEL = (1.0, 3.0, 3.0, 1.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _blur_1d(blur_kernel: tuple) -> torch.Tensor:
+    """The normalized 1-D blur taps, a CPU float32 constant built once per
+    kernel: B3 takes its taps from the host, by value."""
+    return make_kernel(blur_kernel)
+
+
+@functools.lru_cache(maxsize=None)
+def _upsample_blur_taps(blur_kernel: tuple, device, dtype) -> torch.Tensor:
+    """`_compose_upsample_kernel`'s scatter of the x4-gain 2-D blur, on the
+    weight's device, made once: a copy from pageable memory per call would
+    block the host until the stream drains; this pinned one does not."""
+    bk1 = make_kernel(blur_kernel)
+    bk = torch.outer(bk1, bk1) * 4.0
+    kt = bk.shape[0]
+    taps = torch.zeros((3, 3, 3 + kt - 1, 3 + kt - 1))
+    for a in range(3):
+        for b in range(3):
+            taps[a, b, a:a + kt, b:b + kt] = bk
+    taps = taps.to(dtype)
+    if device.type == "cpu":
+        return taps
+    return taps.pin_memory().to(device, non_blocking=True)
+
 
 # (B, 4C, H, W) -> (B, C, 2H, 2W), kernel B4; phase-major unless phase_minor
 depth_to_space2 = kernels.depth_to_space2
@@ -130,7 +157,7 @@ def conv_layer(p, x, ksize, downsample=False, activate=True, dilation=1,
                blur_kernel: Sequence[float] = BLUR_KERNEL):
     if downsample:
         pd = (len(blur_kernel) - 2) + (ksize - 1)
-        x = blur(x, make_kernel(blur_kernel), pad=((pd + 1) // 2, pd // 2))
+        x = blur(x, _blur_1d(tuple(blur_kernel)), pad=((pd + 1) // 2, pd // 2))
         out = equal_conv2d(p.conv, x, stride=2, padding=0)
     else:
         out = equal_conv2d(p.conv, x, stride=1, padding=ksize // 2 + dilation - 1,
@@ -178,16 +205,9 @@ def _compose_upsample_kernel(w_scaled, blur_kernel):
     equals ONE 6-tap kernel on the zero-stuffed input:
     c = conv_full(flip(W), 4 * blur2d). w_scaled: (3, 3, cin, cout) HWIO;
     returns (6, 6, cin, cout)."""
-    kh, kw = w_scaled.shape[:2]
     g = torch.flip(w_scaled, (0, 1))
-    bk1 = make_kernel(blur_kernel)
-    bk = torch.outer(bk1, bk1) * 4.0
-    kt = bk.shape[0]
-    taps = torch.zeros((kh, kw, kh + kt - 1, kw + kt - 1))
-    for a in range(kh):
-        for b in range(kw):
-            taps[a, b, a:a + kt, b:b + kt] = bk
-    return torch.einsum("abio,abpq->pqio", g, taps.to(g))
+    taps = _upsample_blur_taps(tuple(blur_kernel), g.device, g.dtype)
+    return torch.einsum("abio,abpq->pqio", g, taps)
 
 
 def _fused_upsample_weight(w_scaled, blur_kernel):
@@ -297,7 +317,7 @@ def to_rgb(p, x, style, skip=None, blur_kernel: Sequence[float] = BLUR_KERNEL):
     out = modulated_conv2d(p.conv, x, style, demodulate=False)
     out = out + p.bias.to(out.dtype)
     if skip is not None:
-        out = out + upsample_2x(skip.contiguous(), make_kernel(blur_kernel))
+        out = out + upsample_2x(skip.contiguous(), _blur_1d(tuple(blur_kernel)))
     return out
 
 

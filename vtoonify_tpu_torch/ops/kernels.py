@@ -21,13 +21,16 @@ plain integer attribute, `<wrapper>.launches`.
 
 Gradients: each wrapper runs through a `torch.autograd.Function` whose
 forward dispatches as above and whose backward is plain PyTorch on every
-device (the JAX package has no backward Pallas kernel). B1 and B5 recompute
+device (the JAX package has no backward Pallas kernel), except B3's, whose
+adjoint is upfirdn2d again and runs in its kernel; B3 and B4 take their
+Function only where autograd records the op. B1 and B5 recompute
 their plain version under `enable_grad` and call `torch.autograd.grad`; B2,
 B3 and B4 have hand-derived backwards (lrelu' from the saved output, the
 transposed upfirdn2d, the inverse permutation). No double backward.
 
 Layouts and arithmetic: activations are NCHW and contiguous, in float32 or
 bfloat16. B2-B5 compute in float32 and load and store the caller's dtype.
+B3 takes its taps from the host and passes them to the kernel by value.
 B1 has one kernel per dtype: bfloat16 multiplies bf16 operands on the tensor
 cores (mma.sync) into float32 accumulators; float32 stays on the CUDA cores
 in exact float32 (TF32 tensor cores would miss the float32 tolerances).
@@ -36,6 +39,7 @@ in exact float32 (TF32 tensor cores would miss the float32 tolerances).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -124,8 +128,8 @@ def _library():
         p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         lib.vt_modconv3x3.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, f, i, p]
         lib.vt_fused_lrelu.argtypes = [p, p, p, ll, i, ll, f, f, i, p]
-        lib.vt_upfirdn2d.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, i, i,
-                                     i, i, i, p]
+        lib.vt_upfirdn2d.argtypes = [p, ctypes.POINTER(f), p, i, i, i, i, i, i,
+                                     i, i, i, i, i, i, i, i, p]
         lib.vt_d2s2.argtypes = [p, p, i, i, i, i, i, i, p]
         lib.vt_affine_warp.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
         for fn in (lib.vt_modconv3x3, lib.vt_fused_lrelu, lib.vt_upfirdn2d,
@@ -172,7 +176,8 @@ def _ptr(t):
 
 
 def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
+    # the raw handle of the current stream, without building a Stream object
+    return torch._C._cuda_getCurrentRawStream(x.device.index)
 
 
 def _raise_on(rc: int, name: str):
@@ -187,6 +192,28 @@ def launch_counts() -> dict:
 def reset_launch_counts():
     for fn in KERNELS:
         fn.launches = 0
+
+
+def _host_range(name):
+    """Decorator: the wrapped forward runs inside a profiler range `name`
+    while a profiler records, so a trace shows a wrapper's host time per call
+    whether or not autograd records it; otherwise a plain call."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args):
+            if torch.autograd._profiler_enabled():
+                with torch.profiler.record_function(name):
+                    return fn(*args)
+            return fn(*args)
+        return run
+    return wrap
+
+
+def _records_grad(x):
+    """Whether autograd records an op on x. B3 and B4 take their Function
+    only then: its host overhead is a good part of a small launch's time, and
+    serving runs without gradients."""
+    return x.requires_grad and torch.is_grad_enabled()
 
 
 def _grads_by_recompute(plain, ctx, tensors, grad_out, *consts):
@@ -375,6 +402,14 @@ def _upfirdn2d_out_hw(h, w, kh, kw, up, down, pad):
 
 
 def _upfirdn2d_args(up, down, k2d):
+    """The kernel's limits, held on every device: up, down in {1, 2}, taps a
+    (kh, kw) tensor on the CPU with kh, kw <= 12. The launcher passes their
+    values to the kernel by value, as float32; taps on a device would have to
+    be read back first, a hidden wait on it, so they raise."""
+    if k2d.device.type != "cpu" or k2d.ndim != 2:
+        raise ValueError(f"upfirdn2d takes its taps as a 2-D tensor on the CPU "
+                         f"(passed to the kernel by value); got "
+                         f"{tuple(k2d.shape)} on {k2d.device}")
     kh, kw = k2d.shape
     if not (set(up) | set(down) <= {1, 2} and kh <= MAX_TAPS and kw <= MAX_TAPS):
         raise ValueError(f"upfirdn2d kernel takes up, down in {{1, 2}} and "
@@ -390,30 +425,39 @@ def _upfirdn2d_cuda(x, k2d, up, down, pad):
     kh, kw = k2d.shape
     n, c, h, w = x.shape
     oh, ow = _upfirdn2d_out_hw(h, w, kh, kw, up, down, pad)
+    if max(h * w, oh * ow) >= 2**31:
+        raise ValueError("upfirdn2d: planes of 2^31 elements or more")
     y = torch.empty((n, c, oh, ow), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    taps = k2d.to(device=x.device, dtype=torch.float32).contiguous()
+    taps = (ctypes.c_float * (kh * kw))(*k2d.reshape(-1).tolist())  # by value
     rc = _library().vt_upfirdn2d(
-        _ptr(x), _ptr(taps), _ptr(y), n * c, h, w, oh, ow, up_x, up_y,
+        _ptr(x), taps, _ptr(y), n * c, h, w, oh, ow, up_x, up_y,
         down_x, down_y, px0, py0, kh, kw, _DTYPE_CODE[x.dtype], _stream(x))
     _raise_on(rc, "upfirdn2d")
     upfirdn2d.launches += 1
     return y
 
 
+@_host_range("vt::upfirdn2d")
+def _upfirdn2d_forward(x, k2d, up, down, pad):
+    _contiguous("upfirdn2d", x)
+    _upfirdn2d_args(up, down, k2d)  # the kernel's limits, on every device
+    if _on_cpu(x):
+        return upfirdn2d_plain(x, k2d, up, down, pad)
+    return _upfirdn2d_cuda(x, k2d, up, down, pad)
+
+
 class _UpFirDn2d(torch.autograd.Function):
     """Backward by hand: the adjoint of upfirdn2d(x, k, up, down, pad) is
     upfirdn2d(g, flip(k), up=down, down=up) with the pads that give back the
-    input size (the reference's UpFirDn2dBackward), run in the plain version.
-    The taps are constants (no gradient)."""
+    input size (the reference's UpFirDn2dBackward): the same kernel on the
+    card, the plain version on the CPU. The taps are constants (no
+    gradient)."""
 
     @staticmethod
     def forward(ctx, x, k2d, up, down, pad):
-        _contiguous("upfirdn2d", x)
-        _upfirdn2d_args(up, down, k2d)  # the kernel's limits, on every device
-        y = (upfirdn2d_plain(x, k2d, up, down, pad) if _on_cpu(x)
-             else _upfirdn2d_cuda(x, k2d, up, down, pad))
+        y = _upfirdn2d_forward(x, k2d, up, down, pad)
         ctx.save_for_backward(k2d)
         ctx.args = (x.shape[2:], y.shape[2:], up, down, pad)
         return y
@@ -425,20 +469,25 @@ class _UpFirDn2d(torch.autograd.Function):
         kh, kw = k2d.shape
         gpad = (kw - px0 - 1, w * up_x - ow * down_x + px0 - up_x + 1,
                 kh - py0 - 1, h * up_y - oh * down_y + py0 - up_y + 1)
-        gx = upfirdn2d_plain(g, torch.flip(k2d, (0, 1)), up=(down_x, down_y),
-                             down=(up_x, up_y), pad=gpad)
+        gx = _upfirdn2d_forward(g.contiguous(), torch.flip(k2d, (0, 1)),
+                                (down_x, down_y), (up_x, up_y), gpad)
         return gx, None, None, None, None
 
 
 def upfirdn2d(x, k2d, up=(1, 1), down=(1, 1), pad=(0, 0, 0, 0)):
     """Per-plane up-FIR-down resampling.
 
-    x: (N, C, H, W) NCHW; k2d: (kh, kw) float32 taps in convolution
-    orientation, kh, kw <= 12 (per-axis filters are (1, k) or (k, 1));
+    x: (N, C, H, W) NCHW; k2d: (kh, kw) float32 taps on the CPU, in
+    convolution orientation, kh, kw <= 12 (per-axis filters are (1, k) or
+    (k, 1)); the kernel takes their values by value, and taps on any other
+    device raise;
     up, down: (x, y) factors in {1, 2}; pad: (x0, x1, y0, y1), negative pads
     crop.
     """
-    return _UpFirDn2d.apply(x, k2d, tuple(up), tuple(down), tuple(pad))
+    args = (x, k2d, tuple(up), tuple(down), tuple(pad))
+    if _records_grad(x):
+        return _UpFirDn2d.apply(*args)
+    return _upfirdn2d_forward(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -481,16 +530,21 @@ def _depth_to_space2_cuda(x, phase_minor):
     return y
 
 
+@_host_range("vt::depth_to_space2")
+def _depth_to_space2_forward(x, phase_minor):
+    _contiguous("depth_to_space2", x)
+    if _on_cpu(x):
+        return depth_to_space2_plain(x, phase_minor)
+    return _depth_to_space2_cuda(x, phase_minor)
+
+
 class _DepthToSpace2(torch.autograd.Function):
     """Backward by hand: the inverse permutation (space_to_depth2_plain)."""
 
     @staticmethod
     def forward(ctx, x, phase_minor):
-        _contiguous("depth_to_space2", x)
         ctx.phase_minor = phase_minor
-        if _on_cpu(x):
-            return depth_to_space2_plain(x, phase_minor)
-        return _depth_to_space2_cuda(x, phase_minor)
+        return _depth_to_space2_forward(x, phase_minor)
 
     @staticmethod
     def backward(ctx, g):
@@ -503,7 +557,9 @@ def depth_to_space2(x, phase_minor: bool = False):
     phase_minor: input channel o*4 + a*2 + e (the polyphase up conv's
     packing); else (a*2 + e)*C + o (phase-major).
     """
-    return _DepthToSpace2.apply(x, bool(phase_minor))
+    if _records_grad(x):
+        return _DepthToSpace2.apply(x, bool(phase_minor))
+    return _depth_to_space2_forward(x, bool(phase_minor))
 
 
 # ---------------------------------------------------------------------------

@@ -149,7 +149,9 @@ def random_apply_affine(img, p, generator=None, G=None, max_pad=None):
     """img: (B, C, H, W). Returns (augmented, G): `G` is the INVERSE affine
     (the reference's returned matrix); pass it to skip the sampling."""
     b, c, h, w = img.shape
-    k = SYM6.to(img.device, img.dtype)  # taps round through the image dtype
+    # taps round through the image dtype on the host (B3 takes CPU float32
+    # taps, by value)
+    k = SYM6.to(img.dtype).float()
     len_k = k.shape[0]
     pad_k = len_k // 4
     if G is None:

@@ -31,7 +31,7 @@ PARSING_WEIGHT = 1.0 / 16.0
 def down(x):
     """reference Downsample(kernel=[1,3,3,1], factor=2)
     (train_vtoonify_d.py:469), in kernel B3."""
-    return downsample_2x(x, BLUR_1D.to(x.device, x.dtype))
+    return downsample_2x(x, BLUR_1D.to(x.dtype).float())  # host taps, rounded
 
 
 def sample_content_w_batch(gen_p, gcfg: G.GeneratorConfig, directions, z,
