@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels upfirdn2d,depth_to_space2   # those alone
+    python3 chip_smoke.py --kernels fused_leaky_relu,affine_warp
     python3 chip_smoke.py --paths   # serving and bf16 training alone
 
 Builds the port's five hand-written kernels from vtoonify_tpu_torch/csrc
@@ -29,6 +30,8 @@ goes to chiprun_out/chip_smoke/.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import copy
 import json
 import subprocess
@@ -86,6 +89,10 @@ CROP_RGB_SKIP = [28, 56, 112, 224, 448]
 D_BLUR = [(256, 128), (128, 256), (64, 512), (32, 512), (16, 512), (8, 512)]
 SYNTH_DOWN = [(3, 1024), (3, 512), (19, 512), (22, 896), (22, 448)]
 AUG = 4120                                         # x2 augment plane (1024 px)
+# B2's two largest calls in the flagship train step (bf16): the teachers'
+# noisy styled convs at 1024 px (32 channels) and 512 px (64 channels);
+# train_phase records B2's shapes over a step and checks these two
+B2_TRAIN = [(2, 32, 1024, 1024), (2, 64, 512, 512)]
 SOURCES = {
     # bf16 (the summary dtype) runs the tensor-core kernel; f32 runs the
     # CUDA-core kernel in csrc/modconv3x3.cu, which dispatches both
@@ -100,6 +107,8 @@ SOURCES = {
     "affine_warp": ("vtoonify_tpu_torch/csrc/affine_warp.cu",
                     "vtoonify_tpu/ops/pallas_kernels.py:470"),
 }
+# the kernels' names in a profiler trace, for the records' device_ms
+PROFILED = {"fused_leaky_relu": "lrelu", "affine_warp": "affine_warp_kernel"}
 SUMMARY_SET = {  # the shapes each kernel's summary record sums over (bf16)
     "modconv3x3": "batch-1 serving convs, raw folded form (library F.conv2d)",
     "fused_leaky_relu": "batch-1 serving shapes",
@@ -145,6 +154,34 @@ def host_ms(fn, reps):
     t = (time.perf_counter() - t0) / reps * 1e3
     torch.cuda.synchronize()
     return t
+
+
+def profiled_kernel_ms(fn, reps, name, tries=3):
+    """Device time of the kernel alone per launch in ms, and the number of
+    launches it averages: the profiler's device events whose name holds
+    `name`, over `reps` calls of fn(). Beside cuda_ms, which also holds the
+    gaps between launches, it shows a case where the host is what the
+    events time. A trace may hold fewer device events than launches, at
+    times none: such a trace is taken again, up to `tries` times, and
+    (None, 0) means that none held one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        avgs = prof.key_averages()
+        key = ("self_device_time_total" if hasattr(avgs[0], "self_device_time_total")
+               else "self_cuda_time_total")
+        evts = [e for e in avgs if name in e.key
+                and str(getattr(e, "device_type", "")).endswith("CUDA")]
+        count = sum(e.count for e in evts)
+        if count:
+            return sum(getattr(e, key) for e in evts) / count / 1e3, count
+    return None, 0
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -237,7 +274,8 @@ def kernel_cases(rng, dev):
                   2048 if upc else 512, True, False)
 
     for shape, summary in [((1, 512, 32, 32), True), ((4, 512, 32, 32), False),
-                           ((18, 512), True), ((2, 512, 64, 64), False)]:
+                           ((18, 512), True), ((2, 512, 64, 64), False),
+                           *((s, False) for s in B2_TRAIN)]:
         x, bias = t(*shape), t(shape[1], scale=0.1)
 
         def make(dt, x=x, bias=bias):
@@ -245,7 +283,8 @@ def kernel_cases(rng, dev):
             return (lambda: K.fused_leaky_relu(a, c),
                     lambda: K.fused_leaky_relu_plain(a, c), None,
                     (2 * nbytes(dt, a) + nbytes(dt, c), 4 * a.numel()))
-        cases.append(Case("fused_leaky_relu", f"{tuple(shape)}", make, summary))
+        label = f"{tuple(shape)}" + (" train step" if shape in B2_TRAIN else "")
+        cases.append(Case("fused_leaky_relu", label, make, summary))
 
     def fir_case(label, shape, k2d, up, down, pad, summary=False, reps=10):
         x = t(*shape)
@@ -430,6 +469,8 @@ def kernel_phase(dev, only=None):
                 lib_err = (lib_out - want).abs().max().item()
                 del lib_out
             bms, by = bound_ms(nb, fl, dtype)
+            dev_ms, dev_n = (profiled_kernel_ms(kern, case.reps, PROFILED[case.name])
+                             if case.name in PROFILED else (None, None))
             rec = {"phase": "kernel", "kernel": case.name, "shape": case.label,
                    "dtype": dtype, "max_abs_err": err, "tol": tol,
                    "finite": bool(torch.isfinite(got).all()),
@@ -437,6 +478,7 @@ def kernel_phase(dev, only=None):
                    "library_ms": None if lib is None else cuda_ms(lib, case.reps),
                    "library_max_abs_err": lib_err,
                    "host_ms": host_ms(kern, case.reps),
+                   "device_ms": dev_ms, "device_events": dev_n,
                    "library_host_ms": None if lib is None else host_ms(lib, case.reps),
                    "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": fl}
             del got, want
@@ -483,11 +525,11 @@ def kernel_phase(dev, only=None):
 def device_profile(fn, table_name):
     """One fn() under torch.profiler: host wall, device busy time (the
     device-side events, kernels and memcpy/memset, each counted once), B1's
-    share of it, B3's and B4's device time, the host time per call of B3's
+    share of it, B2's to B5's device time, the host time per call of B3's
     forward (the wrapper's `vt::upfirdn2d` range, inside `_UpFirDn2d` where
     autograd records it) and backward (a copy to the device that waits on it
-    shows there), the pageable host-to-device copies, and the top
-    device ops; the full table goes to OUT_DIR."""
+    shows there), the same for B2 and B5, the pageable host-to-device
+    copies, and the top device ops; the full table goes to OUT_DIR."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -512,10 +554,17 @@ def device_profile(fn, table_name):
     return {"wall_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall,
             "b1_device_s": b1, "b1_share_of_device": b1 / busy if busy else 0.0,
             **{f"{b}_device_ms": sum(getattr(e, key) for e in evts if kernel in e.key)
-               / 1e3 for b, kernel in (("b3", "upfirdn2d_kernel"), ("b4", "d2s2_kernel"))},
+               / 1e3 for b, kernel in (("b2", "lrelu"), ("b3", "upfirdn2d_kernel"),
+                                       ("b4", "d2s2_kernel"),
+                                       ("b5", "affine_warp_kernel"))},
             "b3_host_ms_per_call": {  # the wrapper's forward, and the backward
                 e.key: e.cpu_time_total / e.count / 1e3 for e, d in zip(avgs, on_dev)
                 if not d and e.count and (e.key == "vt::upfirdn2d" or "UpFirDn2d" in e.key)},
+            "b2_b5_host_ms_per_call": {
+                e.key: e.cpu_time_total / e.count / 1e3 for e, d in zip(avgs, on_dev)
+                if not d and e.count and any(k in e.key for k in (
+                    "vt::fused_leaky_relu", "FusedLeakyReLU", "vt::affine_warp",
+                    "AffineWarp"))},
             "htod_pageable_copies": sum(e.count for e in evts
                                         if "HtoD (Pageable" in e.key),
             "top_device_ops": [{"op": e.key[:120], "device_ms": getattr(e, key) / 1e3,
@@ -680,6 +729,26 @@ def run_step(state, mods, pcfg, inputs, cfg, dcfg, tcfg, jitter, **kw):
         inputs["style_ind"], 0.5, inputs["weights"], 0.3, 0.5, jitter, **kw)
 
 
+@contextlib.contextmanager
+def recording_b2_shapes():
+    """Counts the (shape, dtype) of every B2 call made through nn/layers.py,
+    its one caller on the main paths, while the context is open."""
+    from vtoonify_tpu_torch.nn import layers
+
+    seen = collections.Counter()
+    real = layers.fused_leaky_relu
+
+    def recording(x, *args, **kw):
+        seen[(tuple(x.shape), str(x.dtype).replace("torch.", ""))] += 1
+        return real(x, *args, **kw)
+
+    layers.fused_leaky_relu = recording
+    try:
+        yield seen
+    finally:
+        layers.fused_leaky_relu = real
+
+
 def _flat(module):
     return torch.cat([p.detach().float().reshape(-1) for p in module.parameters()])
 
@@ -712,8 +781,11 @@ def train_phase(smi, compute_dtype, steps):
         torch.cuda.synchronize()
         K.reset_launch_counts()
         t1 = time.perf_counter()
-        metrics = run_step(state, mods, pcfg, inputs, cfg, dcfg, tcfg, False,
-                           generator=gen)
+        with recording_b2_shapes() if i == 0 else contextlib.nullcontext() as seen:
+            metrics = run_step(state, mods, pcfg, inputs, cfg, dcfg, tcfg, False,
+                               generator=gen)
+            if i == 0:
+                b2_shapes = sorted(seen.items(), key=lambda kv: -np.prod(kv[0][0]))
         torch.cuda.synchronize()
         if i:
             times.append(time.perf_counter() - t1)
@@ -736,10 +808,18 @@ def train_phase(smi, compute_dtype, steps):
            "p50_s_per_iter": float(np.median(times)),
            "min_max_s_per_iter": [min(times), max(times)],
            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "launches_per_step": per_step[1], "metrics": vals, "moved_abs_sum": moved,
+           "launches_per_step": per_step[1],
+           "b2_largest_shapes": [{"shape": list(sh), "dtype": dt, "calls": n}
+                                 for (sh, dt), n in b2_shapes[:6]],
+           "metrics": vals, "moved_abs_sum": moved,
            "setup_seconds": setup_s, "seconds": time.perf_counter() - t0,
            "nvidia_smi": smi}
 
+    largest = sorted({sh for (sh, _), _ in b2_shapes}, key=lambda sh: -np.prod(sh))
+    check(largest[:2] == B2_TRAIN and all(dt == dtype for (sh, dt), _ in b2_shapes
+                                          if sh in B2_TRAIN),
+          f"B2's largest train-step shapes {largest[:2]} ({dtype}) are not "
+          f"chip_smoke's B2 train cases {B2_TRAIN}")
     if compute_dtype is not None:  # profile one more step: top device ops
         rec["profile"] = device_profile(
             lambda: run_step(state, mods, pcfg, inputs, cfg, dcfg, tcfg, False,

@@ -75,11 +75,26 @@ def test_modconv3x3(dev, dtype, b, cin, cout, h, w, modulated, act):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,with_bias", [
-    ((2, 7, 5, 3), True), ((18, 512), True), ((3, 4, 2, 2), False)])
-def test_fused_leaky_relu(dev, dtype, shape, with_bias):
+@pytest.mark.parametrize("shape,with_bias,misalign", [
+    ((2, 7, 5, 3), True, False),      # planes off the 16-byte vector: scalars
+    ((18, 512), True, False),         # (N, C) form, C on the vector
+    ((3, 4, 2, 2), False, False),     # 4-element planes: f32 vector, bf16 scalar
+    ((2, 32, 16, 16), True, False),   # planes on the vector, several chunks
+    ((2, 3, 40, 40), True, False),    # 1600-element planes, ragged last chunk
+    ((1, 65540, 2, 4), True, False),  # more than 65535 planes, vectors
+    ((1, 65537, 3), True, False),     # more than 65535 planes, scalars
+    ((5, 24), True, False),           # (N, C) form, C a multiple of 8
+    ((5, 13), True, False),           # (N, C) form, C off the vector
+    ((5, 13), False, False),
+    ((2, 8, 4, 4), True, True),       # a contiguous view off 16-byte alignment
+    ((6, 16), True, True),
+])
+def test_fused_leaky_relu(dev, dtype, shape, with_bias, misalign):
     rng = np.random.RandomState(1)
     x = _rand(rng, *shape).to(dev, dtype)
+    if misalign:  # same values, one element into a fresh allocation
+        x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(shape)
+        assert x.data_ptr() % 16 and x.is_contiguous()
     bias = _rand(rng, shape[1]).to(dev, dtype) if with_bias else None
     _close(kernels.fused_leaky_relu(x, bias),
            kernels.fused_leaky_relu_plain(x, bias), dtype)
@@ -144,6 +159,15 @@ def test_depth_to_space2(dev, dtype, phase_minor, shape):
     (2, 6, 37, 53, 23, 29, 1.3, 0.0),     # ragged output, non-square input
     (1, 3, 64, 40, 70, 90, 0.6, 0.4),     # affine partly outside the image
     (3, 1, 17, 17, 5, 300, 4.0, -0.2),    # strong minification, long rows
+    # the kernel's paths: rows of a multiple of 4 outputs (packed stores) and
+    # ragged ones (scalar tail); the 6-channel instance and the runtime
+    # channel count (1, 3, 7)
+    (2, 6, 40, 52, 24, 32, 1.1, 0.1),     # C = 6, packed stores
+    (2, 6, 40, 52, 24, 30, 0.9, -0.1),    # C = 6, ragged rows
+    (1, 1, 33, 35, 16, 36, 1.2, 0.3),     # C = 1, packed stores
+    (2, 3, 33, 35, 17, 21, 0.7, 0.0),     # C = 3, ragged rows
+    (1, 7, 29, 31, 19, 28, 1.0, 0.2),     # C = 7, packed stores
+    (65537, 1, 3, 3, 2, 4, 1.0, 0.1),     # more than 65535 samples
 ])
 def test_affine_warp(dev, dtype, n, c, h, w, ho, wo, scale, shift):
     """Against the plain version (F.grid_sample on the same affine's grid):
@@ -163,6 +187,55 @@ def test_affine_warp(dev, dtype, n, c, h, w, ho, wo, scale, shift):
     _close(got, kernels.affine_warp_plain(img, coef, (ho, wo)), dtype)
     if shift:
         assert (got == 0).any() and (got != 0).any()  # some samples outside
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [6, 3])
+def test_affine_warp_non_finite_coefs_give_zeros(dev, dtype, c):
+    """NaN, infinite and huge coefficients map every output outside the
+    image: zeros, and no read out of bounds (it would fault at the
+    synchronize). The image is small, so that a wild gather lands outside
+    its allocation."""
+    img = torch.ones(4, c, 5, 7, device=dev, dtype=dtype)
+    nan, inf = float("nan"), float("inf")
+    coef = torch.tensor([[nan] * 6,
+                         [1.0, 0.0, nan, 0.0, 1.0, 0.0],
+                         [inf, 0.0, 1.0, -inf, 0.0, 1.0],
+                         [1.0, 0.0, 1e30, 0.0, 1.0, -1e30]], device=dev)
+    got = kernels.affine_warp(img, coef, (6, 8))
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+def test_inference_mode_launches_without_a_graph_node(dev, monkeypatch):
+    """B2 and B5 launch their kernels without their autograd Functions where
+    autograd does not record (inference_mode, no_grad), and take them
+    where it does."""
+    x = torch.randn(2, 8, 4, 4, device=dev, requires_grad=True)
+    bias = torch.zeros(8, device=dev, requires_grad=True)
+    img = torch.randn(2, 6, 9, 9, device=dev, requires_grad=True)
+    coef = torch.tensor([[1.0, 0.0, 0.5, 0.0, 1.0, 0.5]] * 2, device=dev)
+
+    def refuse(*args):
+        raise AssertionError("autograd Function taken")
+
+    kernels.reset_launch_counts()
+    with monkeypatch.context() as m:
+        m.setattr(kernels._FusedLeakyReLU, "apply", refuse)
+        m.setattr(kernels._AffineWarp, "apply", refuse)
+        for mode in (torch.inference_mode, torch.no_grad):
+            with mode():
+                y = kernels.fused_leaky_relu(x, bias)
+                z = kernels.affine_warp(img, coef, (5, 5))
+            assert y.grad_fn is None and z.grad_fn is None
+    assert kernels.launch_counts()["fused_leaky_relu"] == 2
+    assert kernels.launch_counts()["affine_warp"] == 2
+    y = kernels.fused_leaky_relu(x, bias)
+    z = kernels.affine_warp(img, coef, (5, 5))
+    assert "FusedLeakyReLU" in type(y.grad_fn).__name__
+    assert "AffineWarp" in type(z.grad_fn).__name__
+    assert kernels.launch_counts()["fused_leaky_relu"] == 3
+    assert kernels.launch_counts()["affine_warp"] == 3
 
 
 def _backward_matches(dev, kern, plain, inputs):

@@ -71,7 +71,13 @@ def test_upsample_2x_and_blur_match_jax():
 
 
 @pytest.mark.parametrize("shape,with_bias", [
-    ((2, 5, 7, 16), True), ((3, 512), True), ((2, 4, 4, 8), False)])
+    ((2, 5, 7, 16), True), ((3, 512), True), ((2, 4, 4, 8), False),
+    # the kernel's paths (JAX layout; the port's plane is H*W): planes of a
+    # multiple of 8 elements (16-byte bf16 vectors), planes off it (scalar
+    # accesses, the port's (2, 7, 5, 3)), and the (N, C) form with C a
+    # multiple of 8 and not
+    ((2, 4, 4, 16), True), ((2, 5, 3, 7), True), ((4, 24), True),
+    ((3, 13), True), ((3, 13), False)])
 def test_fused_leaky_relu_matches_jax(shape, with_bias):
     rng = np.random.RandomState(2)
     x = rng.randn(*shape).astype(np.float32)
@@ -160,6 +166,37 @@ def test_fused_leaky_relu_plain_matches_pallas():
     np.testing.assert_allclose(_nhwc(got), np.asarray(ref), atol=1e-6)
 
 
+@pytest.mark.parametrize("c", [1, 6])
+def test_affine_warp_plain_matches_pallas_channels(c):
+    """B5 through its wrapper (the plain version on the CPU) vs
+    affine_warp_bilinear_pallas in interpret mode (HIGHEST precision) at one
+    channel and at the augment's six, on an output row of 29 px (off the
+    kernel's 4-column vector, so its scalar tail path's shape) from a
+    rotated, scaled, shifted affine that maps part of the output outside the
+    image. 1e-3, as tests/test_torch_train.py holds the two formulations:
+    the plain version goes through the normalized grid and back (float32
+    roundings of coordinates below 50 px) on N(0, 1) pixels."""
+    from vtoonify_tpu.train import augment as JA
+    from vtoonify_tpu_torch.train import augment as A
+
+    rng = np.random.RandomState(13)
+    n, h, w, ho, wo = 2, 40, 46, 23, 29
+    img = rng.randn(n, h, w, c).astype(np.float32)
+    theta = np.tile(np.eye(2, 3, dtype=np.float32), (n, 1, 1))
+    for i, (a, s, t) in enumerate(((0.3, 1.1, (0.25, -0.3)), (-0.2, 0.8, (-0.4, 0.1)))):
+        theta[i, :2, :2] = np.array([[np.cos(a), -np.sin(a)],
+                                     [np.sin(a), np.cos(a)]]) * s
+        theta[i, :, 2] = t
+    coef = np.asarray(JA._pixel_affine_coefs(jnp.asarray(theta), (ho, wo), (h, w)))
+    ref = jpk.affine_warp_bilinear_pallas(jnp.asarray(img), jnp.asarray(coef),
+                                          (ho, wo), interpret=True)
+    coef_t = A._pixel_affine_coefs(torch.from_numpy(theta), (ho, wo), (h, w))
+    got = kernels.affine_warp(_nchw(img), coef_t.contiguous(), (ho, wo))
+    assert got.shape == (n, c, ho, wo) and got.is_contiguous()
+    np.testing.assert_allclose(_nhwc(got), np.asarray(ref), atol=1e-3)
+    assert (np.asarray(ref) == 0).any()  # some samples fall outside
+
+
 def test_upfirdn2d_plain_matches_blur_pallas():
     rng = np.random.RandomState(9)
     x = rng.randn(2, 16, 16, 8).astype(np.float32)
@@ -233,6 +270,145 @@ def test_wrappers_refuse_strided_input_and_return_contiguous(name):
     with pytest.raises(ValueError, match="contiguous"):
         call(x[:, 2:6])
     assert call(x[:, 2:6].contiguous()).is_contiguous()
+
+
+def _refusal_cases():
+    """(wrapper, what is wrong, call, exception): operands the card refuses,
+    one wrong thing each, built on the CPU."""
+    x = torch.zeros(2, 8, 5, 6)
+    w = torch.zeros(3, 3, 8, 4)
+    k2 = torch.ones(4, 4)
+    coef = torch.zeros(2, 6)
+    bf = torch.bfloat16
+    return [
+        ("modconv3x3", "w in another dtype",
+         lambda: kernels.modconv3x3(x, w.to(bf)), ValueError),
+        ("modconv3x3", "bias in another dtype",
+         lambda: kernels.modconv3x3(x, w, bias=torch.zeros(4, dtype=bf)), ValueError),
+        ("modconv3x3", "s of the wrong shape",
+         lambda: kernels.modconv3x3(x, w, s=torch.ones(2, 4)), ValueError),
+        ("modconv3x3", "d of the wrong shape",
+         lambda: kernels.modconv3x3(x, w, d=torch.ones(2, 8)), ValueError),
+        ("modconv3x3", "bias of the wrong shape",
+         lambda: kernels.modconv3x3(x, w, bias=torch.zeros(8)), ValueError),
+        ("modconv3x3", "w of the wrong shape",
+         lambda: kernels.modconv3x3(x, torch.zeros(3, 3, 4, 4)), ValueError),
+        ("modconv3x3", "float64",
+         lambda: kernels.modconv3x3(x.double(), w.double()), TypeError),
+        ("modconv3x3", "batch above 65535",
+         lambda: kernels.modconv3x3(torch.zeros(65536, 1, 1, 1),
+                                    torch.zeros(3, 3, 1, 1)), ValueError),
+        ("fused_leaky_relu", "float32 bias on bfloat16",
+         lambda: kernels.fused_leaky_relu(x.to(bf), torch.zeros(8)), ValueError),
+        ("fused_leaky_relu", "bias of the wrong shape",
+         lambda: kernels.fused_leaky_relu(x, torch.zeros(5)), ValueError),
+        ("fused_leaky_relu", "(N, C) bias of the wrong shape",
+         lambda: kernels.fused_leaky_relu(torch.zeros(3, 16), torch.zeros(3)),
+         ValueError),
+        ("fused_leaky_relu", "float64",
+         lambda: kernels.fused_leaky_relu(x.double()), TypeError),
+        ("fused_leaky_relu", "float16",
+         lambda: kernels.fused_leaky_relu(x.half(), torch.zeros(8).half()), TypeError),
+        ("upfirdn2d", "float64",
+         lambda: kernels.upfirdn2d(x.double(), k2, pad=(2, 1, 2, 1)), TypeError),
+        ("upfirdn2d", "float16",
+         lambda: kernels.upfirdn2d(x.half(), k2, pad=(2, 1, 2, 1)), TypeError),
+        ("depth_to_space2", "channels not divisible by 4",
+         lambda: kernels.depth_to_space2(torch.zeros(2, 6, 3, 3)), ValueError),
+        ("depth_to_space2", "8-byte elements",
+         lambda: kernels.depth_to_space2(x.double()), TypeError),
+        ("affine_warp", "float64 coef",
+         lambda: kernels.affine_warp(x, coef.double(), (4, 4)), ValueError),
+        ("affine_warp", "coef of the wrong shape",
+         lambda: kernels.affine_warp(x, torch.zeros(2, 5), (4, 4)), ValueError),
+        ("affine_warp", "coef for another batch",
+         lambda: kernels.affine_warp(x, torch.zeros(3, 6), (4, 4)), ValueError),
+        ("affine_warp", "bfloat16 coef",
+         lambda: kernels.affine_warp(x.to(bf), coef.to(bf), (4, 4)), ValueError),
+        ("affine_warp", "float64 image",
+         lambda: kernels.affine_warp(x.double(), coef, (4, 4)), TypeError),
+    ]
+
+
+@pytest.mark.parametrize("case", range(len(_refusal_cases())),
+                         ids=[f"{n}-{why}" for n, why, _, _ in _refusal_cases()])
+def test_wrappers_refuse_on_cpu_what_the_card_refuses(case):
+    """Each wrapper holds its operands to the kernel's rule (dtype, one
+    device and dtype for all, shapes, limits) on every device before it
+    dispatches: the CPU raises where the card would, instead of promoting
+    (a bf16 x with a float32 bias would come back float32 from the plain
+    version) or computing what the card refuses."""
+    name, _, call, exc = _refusal_cases()[case]
+    kernels.reset_launch_counts()
+    with pytest.raises(exc):
+        call()
+    assert kernels.launch_counts()[name] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pipeline_leaves_the_callers_modules_untouched(dtype):
+    """ToonifyPipeline holds copies of vt and parsing in both dtypes: not the
+    caller's objects, no parameter storage shared with them, and the
+    caller's parameters unchanged (values, dtype, device) after the
+    pipeline has run."""
+    from vtoonify_tpu_torch.models import vtoonify as V
+    from vtoonify_tpu_torch.models.bisenet import init_bisenet
+    from vtoonify_tpu_torch.pipeline.toonify import ToonifyPipeline
+
+    cfg = V.VToonifyConfig(in_size=32, out_size=64, channel_multiplier=1,
+                           channel_max=32, num_res_layers=1)
+    g = torch.Generator().manual_seed(0)
+    vt, parsing = V.init_vtoonify(cfg, g), init_bisenet(generator=g)
+    before = {k: v.clone() for k, v in vt.state_dict().items()}
+    pipe = ToonifyPipeline(vt, cfg, parsing, dtype=dtype, device="cpu")
+    assert pipe.vt is not vt and pipe.parsing is not parsing
+    theirs = {p.data_ptr() for p in [*vt.parameters(), *parsing.parameters()]}
+    assert not theirs & {p.data_ptr() for p in [*pipe.vt.parameters(),
+                                                *pipe.parsing.parameters()]}
+    out = pipe.process_image(np.zeros((32, 32, 3), np.uint8),
+                             np.zeros((1, cfg.n_latent, 512), np.float32), 0.5)
+    assert out.shape == (64, 64, 3)
+    after = vt.state_dict()
+    assert before.keys() == after.keys()
+    for k, v in before.items():
+        assert after[k].dtype == v.dtype and after[k].device == v.device
+        assert torch.equal(after[k], v), k
+
+
+@pytest.mark.parametrize("name", ["fused_leaky_relu", "upfirdn2d",
+                                  "depth_to_space2", "affine_warp"])
+def test_wrappers_take_their_function_only_where_autograd_records(name, monkeypatch):
+    """B2-B5 skip their autograd Function under inference_mode and no_grad
+    (serving), and on inputs that need no gradient; they take it where
+    autograd records the op. Decided before the device dispatch, so the CPU
+    shows the card's routing."""
+    rng = np.random.RandomState(14)
+    x = torch.from_numpy(rng.randn(2, 8, 6, 5).astype(np.float32)).requires_grad_()
+    bias = torch.zeros(8, requires_grad=True)
+    k2 = torch.ones(4, 4) / 16
+    coef = torch.tensor([[0.9, 0.1, 0.3, -0.1, 1.1, -0.2]] * 2)
+    fn, call = {
+        "fused_leaky_relu": ("_FusedLeakyReLU",
+                             lambda t: kernels.fused_leaky_relu(t, bias)),
+        "upfirdn2d": ("_UpFirDn2d",
+                      lambda t: kernels.upfirdn2d(t, k2, pad=(2, 1, 2, 1))),
+        "depth_to_space2": ("_DepthToSpace2", lambda t: kernels.depth_to_space2(t)),
+        "affine_warp": ("_AffineWarp", lambda t: kernels.affine_warp(t, coef, (4, 3))),
+    }[name]
+    taken = call(x)
+    assert fn.lstrip("_") in type(taken.grad_fn).__name__
+
+    def refuse(*args):
+        raise AssertionError("autograd Function taken")
+
+    with monkeypatch.context() as m:
+        m.setattr(getattr(kernels, fn), "apply", refuse)
+        for mode in (torch.inference_mode, torch.no_grad):
+            with mode():
+                assert call(x).grad_fn is None
+        if name != "fused_leaky_relu":  # B2's bias still needs a gradient
+            assert call(x.detach()).grad_fn is None
+    torch.testing.assert_close(call(x.detach()), taken.detach(), rtol=0, atol=0)
 
 
 def test_upfirdn2d_refuses_taps_off_the_cpu():

@@ -370,8 +370,10 @@ def test_losses_and_ema_match_jax():
 
 
 # ---------------------------------------------------------------------------
-# gradients of the kernel wrappers (float64, CPU: the plain forward, the
-# autograd Function's backward)
+# gradients of the kernel wrappers' autograd Functions (float64, CPU: the
+# plain forward, the Function's backward). The Functions are called directly:
+# the public wrappers hold every device to the kernels' float32/bfloat16 rule,
+# and gradcheck needs float64.
 
 
 def _f64(rng, *shape, scale=1.0):
@@ -389,8 +391,9 @@ def test_gradcheck_modconv3x3(form):
 
     def fn(*a):
         it = iter(a)
-        return kernels.modconv3x3(next(it), next(it), *(
-            next(it) if v is not None else None for v in (s, d, b)))
+        return kernels._ModConv3x3.apply(next(it), next(it), *(
+            next(it) if v is not None else None for v in (s, d, b)), 0.2,
+            kernels.SQRT2)
     assert torch.autograd.gradcheck(fn, args)
 
 
@@ -399,7 +402,8 @@ def test_gradcheck_fused_leaky_relu(ndim):
     rng = np.random.RandomState(32)
     x = _f64(rng, *((3, 5) if ndim == 2 else (2, 3, 4, 5)))
     b = _f64(rng, x.shape[1])
-    assert torch.autograd.gradcheck(kernels.fused_leaky_relu, (x, b))
+    assert torch.autograd.gradcheck(
+        lambda a, c: kernels._FusedLeakyReLU.apply(a, c, 0.2, kernels.SQRT2), (x, b))
 
 
 @pytest.mark.parametrize("kshape,up_,down,pad", [
@@ -413,15 +417,15 @@ def test_gradcheck_upfirdn2d(kshape, up_, down, pad):
     rng = np.random.RandomState(33)
     x = _f64(rng, 1, 2, 15, 16)
     k = torch.from_numpy(rng.rand(*kshape))
-    assert torch.autograd.gradcheck(lambda t: kernels.upfirdn2d(t, k, up_, down, pad),
-                                    (x,))
+    assert torch.autograd.gradcheck(
+        lambda t: kernels._UpFirDn2d.apply(t, k, up_, down, pad), (x,))
 
 
 @pytest.mark.parametrize("phase_minor", [False, True])
 def test_gradcheck_depth_to_space2(phase_minor):
     x = _f64(np.random.RandomState(34), 2, 8, 3, 5)
-    assert torch.autograd.gradcheck(lambda t: kernels.depth_to_space2(t, phase_minor),
-                                    (x,))
+    assert torch.autograd.gradcheck(
+        lambda t: kernels._DepthToSpace2.apply(t, phase_minor), (x,))
 
 
 def test_gradcheck_affine_warp():
@@ -432,8 +436,8 @@ def test_gradcheck_affine_warp():
     coef = torch.tensor([[1.1, 0.2, -0.7, -0.15, 0.9, 0.3],
                          [0.8, -0.1, 1.3, 0.05, 1.2, -0.4]], dtype=torch.float64)
     coef = (coef + torch.from_numpy(rng.rand(2, 6) * 0.02)).requires_grad_()
-    assert torch.autograd.gradcheck(lambda a, c: kernels.affine_warp(a, c, (7, 8)),
-                                    (img, coef))
+    assert torch.autograd.gradcheck(
+        lambda a, c: kernels._AffineWarp.apply(a, c, (7, 8)), (img, coef))
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,13 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
+// one element through the read-only path, as float32
+__device__ __forceinline__ float ldg_float(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_float(const __nv_bfloat16* p) {
+  const unsigned short bits = __ldg(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float(static_cast<unsigned>(bits) << 16);
+}
+
 __device__ __forceinline__ float leaky_relu_gain(float v, float slope,
                                                  float gain) {
   return (v >= 0.f ? v : v * slope) * gain;

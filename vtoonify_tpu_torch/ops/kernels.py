@@ -11,9 +11,12 @@ Every TPU kernel of the JAX package (each function that reaches
 | B4 | `depth_to_space2_pallas` :600 (`_d2s2_kernel` :591, call :617) | (B,H,W,4C) -> (B,2H,2W,C) | `depth_to_space2` (+ phase-minor), csrc/d2s2.cu |
 | B5 | `affine_warp_bilinear_pallas` :470 (`_affine_warp_kernel` :351, call :542) | bilinear sampling, zero padding, along a pixel-space affine | `affine_warp`, csrc/affine_warp.cu |
 
-Each wrapper dispatches on where its tensor lies and nowhere else: a CPU
-tensor takes the plain PyTorch version (`*_plain`, the tests' oracle); a CUDA
-tensor launches the kernel or raises. The CUDA sources are compiled with
+Each wrapper first checks its operands against the kernel's rule (dtype,
+one device and dtype for all, shapes, contiguity, the kernel's limits) on
+every device, so that a CPU run refuses what the card refuses; then it
+dispatches on where its tensor lies and nowhere else: a CPU tensor takes the
+plain PyTorch version (`*_plain`, the tests' oracle); a CUDA tensor launches
+the kernel or raises. The CUDA sources are compiled with
 `nvcc` for `sm_90a` into one shared library with a plain C interface, at
 first use, into `vtoonify_tpu_torch/_build/` (keyed by a hash of the
 sources), and bound with `ctypes`. Each wrapper counts its launches in a
@@ -22,8 +25,9 @@ plain integer attribute, `<wrapper>.launches`.
 Gradients: each wrapper runs through a `torch.autograd.Function` whose
 forward dispatches as above and whose backward is plain PyTorch on every
 device (the JAX package has no backward Pallas kernel), except B3's, whose
-adjoint is upfirdn2d again and runs in its kernel; B3 and B4 take their
-Function only where autograd records the op. B1 and B5 recompute
+adjoint is upfirdn2d again and runs in its kernel; B2, B3, B4 and B5 take
+their Function only where autograd records the op (B1 always does). B1 and
+B5 recompute
 their plain version under `enable_grad` and call `torch.autograd.grad`; B2,
 B3 and B4 have hand-derived backwards (lrelu' from the saved output, the
 transposed upfirdn2d, the inverse permutation). No double backward.
@@ -153,7 +157,8 @@ def _on_cpu(x: torch.Tensor) -> bool:
 
 def _check(name, x, *others):
     """The kernels' dtype rule: float32 or bfloat16, every operand in x's
-    dtype and on its device (contiguity: `_contiguous`, on every device)."""
+    dtype and on its device. Part of each wrapper's operand rule, held on
+    every device with contiguity (`_contiguous`)."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: dtype {x.dtype} not supported "
                         f"({tuple(_DTYPE_CODE)})")
@@ -209,11 +214,12 @@ def _host_range(name):
     return wrap
 
 
-def _records_grad(x):
-    """Whether autograd records an op on x. B3 and B4 take their Function
-    only then: its host overhead is a good part of a small launch's time, and
-    serving runs without gradients."""
-    return x.requires_grad and torch.is_grad_enabled()
+def _records_grad(*ts):
+    """Whether autograd records an op on these operands. B2-B5 take their
+    Function only then: its host overhead is a good part of a small launch's
+    time, and serving runs without gradients."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
 
 
 def _grads_by_recompute(plain, ctx, tensors, grad_out, *consts):
@@ -248,7 +254,9 @@ def modconv3x3_plain(x, w, s=None, d=None, bias=None,
     return y
 
 
-def _modconv3x3_cuda(x, w, s, d, bias, negative_slope, gain):
+def _modconv3x3_args(x, w, s, d, bias):
+    """B1's operand rule, held on every device."""
+    _contiguous("modconv3x3", x, w, s, d, bias)
     _check("modconv3x3", x, w, s, d, bias)
     b, cin, h, wd = x.shape
     cout = w.shape[-1]
@@ -262,6 +270,11 @@ def _modconv3x3_cuda(x, w, s, d, bias, negative_slope, gain):
         raise ValueError(f"modconv3x3: bias {tuple(bias.shape)} != {(cout,)}")
     if b > 65535:
         raise ValueError("modconv3x3: batch above 65535")
+
+
+def _modconv3x3_cuda(x, w, s, d, bias, negative_slope, gain):
+    b, cin, h, wd = x.shape
+    cout = w.shape[-1]
     y = torch.empty((b, cout, h, wd), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
@@ -280,7 +293,6 @@ class _ModConv3x3(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, s, d, bias, negative_slope, gain):
-        _contiguous("modconv3x3", x, w, s, d, bias)
         ctx.save_for_backward(x, w, s, d, bias)
         ctx.consts = (negative_slope, gain)
         if _on_cpu(x):
@@ -302,6 +314,7 @@ def modconv3x3(x, w, s=None, d=None, bias=None, negative_slope: float = 0.2,
     d: (B, Cout) or None; bias: (Cout,) or None (None: no activation, the
     raw conv out). Returns (B, Cout, H, W) in x's dtype (float32/bfloat16).
     """
+    _modconv3x3_args(x, w, s, d, bias)
     return _ModConv3x3.apply(x, w, s, d, bias, negative_slope, gain)
 
 
@@ -317,21 +330,40 @@ def fused_leaky_relu_plain(x, bias=None, negative_slope: float = 0.2,
     return F.leaky_relu(x, negative_slope) * gain
 
 
-def _fused_leaky_relu_cuda(x, bias, negative_slope, gain):
+def _fused_leaky_relu_args(x, bias):
+    """B2's operand rule, held on every device: the kernel indexes inside a
+    plane (or, for the (N, C) form, the whole tensor) in 32 bits."""
+    _contiguous("fused_leaky_relu", x, bias)
     _check("fused_leaky_relu", x, bias)
     c = x.shape[1] if x.ndim > 1 else 1
     if bias is not None and tuple(bias.shape) != (c,):
         raise ValueError(f"fused_leaky_relu: bias {tuple(bias.shape)} != {(c,)}")
+    if x.ndim > 2:
+        if math.prod(x.shape[2:]) >= 2**31:
+            raise ValueError("fused_leaky_relu: planes of 2^31 elements or more")
+    elif x.numel() >= 2**31:
+        raise ValueError("fused_leaky_relu: (N, C) of 2^31 elements or more")
+
+
+def _fused_leaky_relu_cuda(x, bias, negative_slope, gain):
+    c = x.shape[1] if x.ndim > 1 else 1
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
-    inner = x[0, 0].numel() if x.ndim > 1 else 1
+    inner = math.prod(x.shape[2:])
     rc = _library().vt_fused_lrelu(
         _ptr(x), _ptr(bias), _ptr(y), x.numel(), c, inner, negative_slope,
         gain, _DTYPE_CODE[x.dtype], _stream(x))
     _raise_on(rc, "fused_leaky_relu")
     fused_leaky_relu.launches += 1
     return y
+
+
+@_host_range("vt::fused_leaky_relu")
+def _fused_leaky_relu_forward(x, bias, negative_slope, gain):
+    if _on_cpu(x):
+        return fused_leaky_relu_plain(x, bias, negative_slope, gain)
+    return _fused_leaky_relu_cuda(x, bias, negative_slope, gain)
 
 
 class _FusedLeakyReLU(torch.autograd.Function):
@@ -341,9 +373,7 @@ class _FusedLeakyReLU(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, bias, negative_slope, gain):
-        _contiguous("fused_leaky_relu", x, bias)
-        y = (fused_leaky_relu_plain(x, bias, negative_slope, gain) if _on_cpu(x)
-             else _fused_leaky_relu_cuda(x, bias, negative_slope, gain))
+        y = _fused_leaky_relu_forward(x, bias, negative_slope, gain)
         ctx.save_for_backward(y)
         ctx.consts = (negative_slope, gain)
         return y
@@ -368,7 +398,10 @@ def fused_leaky_relu(x, bias=None, negative_slope: float = 0.2,
     x: (N, C, ...) — NCHW activations or (N, C) linear outputs; bias: (C,)
     in x's dtype, or None. Returns a new tensor of x's shape and dtype.
     """
-    return _FusedLeakyReLU.apply(x, bias, negative_slope, gain)
+    _fused_leaky_relu_args(x, bias)
+    if _records_grad(x, bias):
+        return _FusedLeakyReLU.apply(x, bias, negative_slope, gain)
+    return _fused_leaky_relu_forward(x, bias, negative_slope, gain)
 
 
 # ---------------------------------------------------------------------------
@@ -401,11 +434,14 @@ def _upfirdn2d_out_hw(h, w, kh, kw, up, down, pad):
             (w * up[0] + px0 + px1 - kw + down[0]) // down[0])
 
 
-def _upfirdn2d_args(up, down, k2d):
-    """The kernel's limits, held on every device: up, down in {1, 2}, taps a
+def _upfirdn2d_args(x, k2d, up, down, pad):
+    """B3's operand rule and limits, held on every device by the wrapper
+    (the backward's call inherits the forward's): contiguous float32 or
+    bfloat16 input, planes indexed in 32 bits, up, down in {1, 2}, taps a
     (kh, kw) tensor on the CPU with kh, kw <= 12. The launcher passes their
     values to the kernel by value, as float32; taps on a device would have to
     be read back first, a hidden wait on it, so they raise."""
+    _contiguous("upfirdn2d", x)
     if k2d.device.type != "cpu" or k2d.ndim != 2:
         raise ValueError(f"upfirdn2d takes its taps as a 2-D tensor on the CPU "
                          f"(passed to the kernel by value); got "
@@ -415,18 +451,20 @@ def _upfirdn2d_args(up, down, k2d):
         raise ValueError(f"upfirdn2d kernel takes up, down in {{1, 2}} and "
                          f"taps <= {MAX_TAPS} (got up={up}, down={down}, "
                          f"k={kh}x{kw})")
+    _check("upfirdn2d", x)
+    h, w = x.shape[2:]
+    oh, ow = _upfirdn2d_out_hw(h, w, kh, kw, up, down, pad)
+    if max(h * w, oh * ow) >= 2**31:
+        raise ValueError("upfirdn2d: planes of 2^31 elements or more")
 
 
 def _upfirdn2d_cuda(x, k2d, up, down, pad):
-    _check("upfirdn2d", x)
     up_x, up_y = up
     down_x, down_y = down
     px0, _, py0, _ = pad
     kh, kw = k2d.shape
     n, c, h, w = x.shape
     oh, ow = _upfirdn2d_out_hw(h, w, kh, kw, up, down, pad)
-    if max(h * w, oh * ow) >= 2**31:
-        raise ValueError("upfirdn2d: planes of 2^31 elements or more")
     y = torch.empty((n, c, oh, ow), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
@@ -441,8 +479,6 @@ def _upfirdn2d_cuda(x, k2d, up, down, pad):
 
 @_host_range("vt::upfirdn2d")
 def _upfirdn2d_forward(x, k2d, up, down, pad):
-    _contiguous("upfirdn2d", x)
-    _upfirdn2d_args(up, down, k2d)  # the kernel's limits, on every device
     if _on_cpu(x):
         return upfirdn2d_plain(x, k2d, up, down, pad)
     return _upfirdn2d_cuda(x, k2d, up, down, pad)
@@ -485,6 +521,7 @@ def upfirdn2d(x, k2d, up=(1, 1), down=(1, 1), pad=(0, 0, 0, 0)):
     crop.
     """
     args = (x, k2d, tuple(up), tuple(down), tuple(pad))
+    _upfirdn2d_args(*args)
     if _records_grad(x):
         return _UpFirDn2d.apply(*args)
     return _upfirdn2d_forward(*args)
@@ -514,12 +551,17 @@ def space_to_depth2_plain(y, phase_minor: bool = False):
     return t.reshape(n, 4 * c, h2 // 2, w2 // 2)
 
 
-def _depth_to_space2_cuda(x, phase_minor):
-    n, c4, h, w = x.shape
-    if c4 % 4:
-        raise ValueError(f"depth_to_space2: channels {c4} not divisible by 4")
+def _depth_to_space2_args(x):
+    """B4's operand rule, held on every device."""
+    _contiguous("depth_to_space2", x)
+    if x.shape[1] % 4:
+        raise ValueError(f"depth_to_space2: channels {x.shape[1]} not divisible by 4")
     if x.element_size() not in (1, 2, 4):
         raise TypeError(f"depth_to_space2: dtype {x.dtype} not supported")
+
+
+def _depth_to_space2_cuda(x, phase_minor):
+    n, c4, h, w = x.shape
     y = torch.empty((n, c4 // 4, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
@@ -532,7 +574,6 @@ def _depth_to_space2_cuda(x, phase_minor):
 
 @_host_range("vt::depth_to_space2")
 def _depth_to_space2_forward(x, phase_minor):
-    _contiguous("depth_to_space2", x)
     if _on_cpu(x):
         return depth_to_space2_plain(x, phase_minor)
     return _depth_to_space2_cuda(x, phase_minor)
@@ -557,6 +598,7 @@ def depth_to_space2(x, phase_minor: bool = False):
     phase_minor: input channel o*4 + a*2 + e (the polyphase up conv's
     packing); else (a*2 + e)*C + o (phase-major).
     """
+    _depth_to_space2_args(x)
     if _records_grad(x):
         return _DepthToSpace2.apply(x, bool(phase_minor))
     return _depth_to_space2_forward(x, bool(phase_minor))
@@ -594,7 +636,10 @@ def affine_warp_plain(img, coef, out_hw):
     return out.to(img.dtype).contiguous()
 
 
-def _affine_warp_cuda(img, coef, out_hw):
+def _affine_warp_args(img, coef, out_hw):
+    """B5's operand rule, held on every device: float32 coefficients
+    (N, 6) beside the image, planes indexed in 32 bits."""
+    _contiguous("affine_warp", img, coef)
     _check("affine_warp", img)
     n, c, h, w = img.shape
     ho, wo = out_hw
@@ -602,6 +647,13 @@ def _affine_warp_cuda(img, coef, out_hw):
             or coef.device != img.device):
         raise ValueError(f"affine_warp: coef must be a contiguous ({n}, 6) "
                          f"float32 tensor on {img.device}")
+    if max(h * w, ho * wo) >= 2**31:
+        raise ValueError("affine_warp: planes of 2^31 elements or more")
+
+
+def _affine_warp_cuda(img, coef, out_hw):
+    n, c, h, w = img.shape
+    ho, wo = out_hw
     y = torch.empty((n, c, ho, wo), dtype=img.dtype, device=img.device)
     if y.numel() == 0:
         return y
@@ -612,6 +664,13 @@ def _affine_warp_cuda(img, coef, out_hw):
     return y
 
 
+@_host_range("vt::affine_warp")
+def _affine_warp_forward(img, coef, out_hw):
+    if _on_cpu(img):
+        return affine_warp_plain(img, coef, out_hw)
+    return _affine_warp_cuda(img, coef, out_hw)
+
+
 class _AffineWarp(torch.autograd.Function):
     """Backward: recomputes the plain version (F.grid_sample) under
     enable_grad and takes torch.autograd.grad, for img and coef — the
@@ -619,12 +678,9 @@ class _AffineWarp(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, img, coef, out_hw):
-        _contiguous("affine_warp", img, coef)
         ctx.save_for_backward(img, coef)
         ctx.out_hw = out_hw
-        if _on_cpu(img):
-            return affine_warp_plain(img, coef, out_hw)
-        return _affine_warp_cuda(img, coef, out_hw)
+        return _affine_warp_forward(img, coef, out_hw)
 
     @staticmethod
     def backward(ctx, g):
@@ -638,7 +694,11 @@ def affine_warp(img, coef, out_hw):
     coef (N, 6) float32 pixel-space affine [ax, bx, cx, ay, by, cy] (see
     `affine_warp_grid`); returns (N, C, Ho, Wo) in img's dtype. No bound on
     the affine's scale."""
-    return _AffineWarp.apply(img, coef, tuple(int(v) for v in out_hw))
+    out_hw = tuple(int(v) for v in out_hw)
+    _affine_warp_args(img, coef, out_hw)
+    if _records_grad(img, coef):
+        return _AffineWarp.apply(img, coef, out_hw)
+    return _affine_warp_forward(img, coef, out_hw)
 
 
 KERNELS = (modconv3x3, fused_leaky_relu, upfirdn2d, depth_to_space2,

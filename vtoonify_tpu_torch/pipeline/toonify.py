@@ -94,8 +94,7 @@ class ToonifyPipeline:
         self.vt_cfg = vt_cfg
         self.dtype = dtype
         self.device = resolve_device(device)
-        self.vt = vt.to(self.device) if dtype == torch.float32 else (
-            copy.deepcopy(vt).to(self.device, dtype))
+        self.vt = copy.deepcopy(vt).to(self.device, dtype)
         self.parsing = copy.deepcopy(parsing).to(self.device, dtype)
 
     def compute_style(self, aligned_face_u8, color_transfer: bool = False):
