@@ -3,7 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels upfirdn2d,depth_to_space2   # those alone
     python3 chip_smoke.py --kernels fused_leaky_relu,affine_warp
-    python3 chip_smoke.py --paths   # serving and bf16 training alone
+    python3 chip_smoke.py --paths   # serving, style + engine, bf16 training
 
 Builds the port's five hand-written kernels from vtoonify_tpu_torch/csrc
 with nvcc (sm_90a, one nvcc per source, in parallel), checks each against its
@@ -15,6 +15,14 @@ with random weights from a seeded torch.Generator:
   DualStyleGAN, 256 px -> 1024 px) behind ToonifyPipeline.process_batch,
   checked against the same modules on the CPU in float32, timed at batch 1
   and 16, and one call of each profiled (device busy share, B1's share);
+* style_engine: style preparation (ToonifyPipeline.compute_style: the
+  flagship pSp encoder with 18 styles, the mapping MLP, the exemplar
+  splice from a bank of 3 random z+ codes) on the card against the CPU in
+  float32 and timed in the bf16 pipeline; then the video engine
+  (pipeline/video.py::toonify_frames) over in-memory 256 px frames at
+  batch 16, held to process_batch on the same batches and timed beside it,
+  with its stage breakdown (decode and encode are not part of it: frames
+  come from memory and go to memory);
 * train: the flagship VToonify-D stage-2 training step (train_d_step:
   teacher synthesis with the augment, D step, G step with LPIPS and the
   temporal crop, EMA) at batch 2 in bfloat16 and float32, timed and
@@ -65,6 +73,13 @@ TOL_GRAD = 1e-4  # backward: the same plain ops on both sides (only the
 # the elements whose |g| is above the noise floor (at least 5% of them with
 # these random weights; most gradients are below 100 eps = 1e-6)
 STEP_RTOL = 2e-3
+# compute_style, card vs CPU in float32 (TF32 off): relative L2 of s_w; pSp's
+# 24 IR-SE units and the mapping MLP differ only in the order of float32 sums
+STYLE_REL_L2 = 1e-4
+# the engine's frames vs process_batch on the same batches: the same calls,
+# but cuDNN may pick another algorithm for the ragged last batch
+ENGINE_MAX_LSB = 1
+ENGINE_FRAMES, ENGINE_TIMED_FRAMES, ENGINE_BATCH, ENGINE_PX = 40, 160, 16, 256
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM (data sheet)
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
@@ -695,6 +710,171 @@ def serve_phases(smi):
 
 
 # ---------------------------------------------------------------------------
+# style_engine: style preparation and the video engine
+
+
+def _sync_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def style_engine_phase(smi):
+    """compute_style at the flagship pSp (18 styles) with an exemplar bank
+    of 3 random z+ codes, card vs CPU in float32 and timed in the bf16
+    pipeline; the video engine over in-memory frames, held to process_batch
+    and timed beside it. Returns the launches counted over the style timing
+    calls and the engine's gated run."""
+    from vtoonify_tpu_torch.models.psp_encoder import PSPEncoderConfig, init_psp_encoder
+    from vtoonify_tpu_torch.ops import kernels as K
+    from vtoonify_tpu_torch.pipeline import video
+    from vtoonify_tpu_torch.pipeline.toonify import ToonifyPipeline
+    from vtoonify_tpu_torch.utils.profiling import StageTimer
+
+    t0 = time.perf_counter()
+    cfg, vt_cpu, parsing_cpu = build_modules()
+    g = torch.Generator().manual_seed(SEED + 2)
+    pcfg = PSPEncoderConfig(n_styles=cfg.n_latent)  # 18
+    psp_cpu = init_psp_encoder(pcfg, g)
+    latent_avg = torch.randn((pcfg.n_styles, 512), generator=g) * 0.3
+    bank = [torch.randn((1, cfg.n_latent, 512), generator=g) * 0.3 for _ in range(3)]
+    style = dict(psp_params=psp_cpu, psp_cfg=pcfg, latent_avg=latent_avg,
+                 exstyle=bank[1])
+    rng = np.random.RandomState(SEED + 2)
+    face = rng.randint(0, 256, (256, 256, 3)).astype(np.uint8)
+    pipe = ToonifyPipeline(vt_cpu, cfg, parsing_cpu, dtype=torch.bfloat16, **style)
+    check(pipe.psp.input_conv.weight.device.type == "cuda"
+          and pipe.psp.input_conv.weight.dtype == torch.float32,
+          "the bf16 pipeline's pSp encoder is not float32 on the card")
+    setup_s = time.perf_counter() - t0
+
+    # style timing, bf16 pipeline (style preparation runs in float32)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    first_ms, s_w = _sync_ms(lambda: pipe.compute_style(face))
+    warm = [_sync_ms(lambda: pipe.compute_style(face))[0] for _ in range(10)]
+    launches_style = K.launch_counts()
+    check(launches_style["fused_leaky_relu"] > 0,
+          "compute_style did not launch B2 (the mapping MLP's fused_lrelu)")
+    prof = device_profile(lambda: pipe.compute_style(face), "style_profile.txt")
+    # the same with TF32 for cuDNN's convs, torch's default and the CLI's
+    # without --fp32 (the gates below run with TF32 off)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        pipe.compute_style(face)
+        warm_tf32 = [_sync_ms(lambda: pipe.compute_style(face))[0] for _ in range(10)]
+        s_w_tf32 = pipe.compute_style(face)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    style_rec = {"phase": "style", "config": "pSp (18 styles) + the flagship "
+                 "mapping MLP, exemplar bank of 3 random z+ codes",
+                 "first_call_ms": first_ms, "warm_median_ms": float(np.median(warm)),
+                 "warm_min_max_ms": [min(warm), max(warm)],
+                 "warm_median_ms_tf32": float(np.median(warm_tf32)),
+                 "tf32_rel_l2": ((s_w_tf32 - s_w).norm() / s_w.norm()).item(),
+                 "launches": launches_style, "tf32": False,
+                 "profile": {k: prof[k] for k in ("wall_s", "device_busy_s",
+                                                  "device_busy_share", "top_device_ops")},
+                 "nvidia_smi": smi}
+
+    # style gate: card vs CPU, float32, with and without color transfer
+    pipe_f32 = ToonifyPipeline(vt_cpu, cfg, parsing_cpu, dtype=torch.float32, **style)
+    pipe_cpu = ToonifyPipeline(vt_cpu, cfg, parsing_cpu, dtype=torch.float32,
+                               device="cpu", **style)
+    errs = {}
+    for color in (False, True):
+        card, host = (p.compute_style(face, color).cpu() for p in (pipe_f32, pipe_cpu))
+        errs[f"color_transfer={color}"] = ((card - host).norm() / host.norm()).item()
+        n = cfg.n_latent if color else 7
+        check(tuple(card.shape) == (1, cfg.n_latent, 512) and torch.isfinite(card).all(),
+              f"compute_style gave {tuple(card.shape)}")
+        check(torch.equal(card[:, :n], pipe_f32.exstyle_w[:, :n].cpu()),
+              f"the exemplar splice (layers :{n}) is not exemplar_w's")
+    exw_err = ((pipe_f32.exstyle_w.cpu() - pipe_cpu.exstyle_w).norm()
+               / pipe_cpu.exstyle_w.norm()).item()
+    style_rec.update(rel_l2_card_vs_cpu=errs, exstyle_w_rel_l2=exw_err,
+                     bound_rel_l2=STYLE_REL_L2)
+    emit(style_rec)
+    check(max(*errs.values(), exw_err) <= STYLE_REL_L2,
+          f"compute_style card vs CPU: relative L2 {errs}, exstyle_w {exw_err}")
+    del pipe_f32, pipe_cpu
+    torch.cuda.empty_cache()
+
+    # engine gate: 40 frames at batch 16 (16, 16, 8), against process_batch
+    frames = rng.randint(0, 256, (ENGINE_TIMED_FRAMES, ENGINE_PX, ENGINE_PX, 3)
+                         ).astype(np.uint8)
+
+    def engine(n, writer, timer=None):
+        return video.toonify_frames(
+            pipe, ((25.0, f) for f in frames[:n]), lambda fps, size: writer,
+            scale_image=False, batch_size=ENGINE_BATCH, max_in_flight=3, s_w=s_w,
+            timer=timer)
+
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    kept = video.MemoryWriter()
+    result = engine(ENGINE_FRAMES, kept)
+    torch.cuda.synchronize()
+    launches_engine = K.launch_counts()
+    check(result.frames_written == len(kept.frames) == ENGINE_FRAMES,
+          f"engine wrote {result.frames_written} frames, want {ENGINE_FRAMES}")
+    out_shape = (4 * ENGINE_PX, 4 * ENGINE_PX, 3)
+    check(all(f.shape == out_shape and f.dtype == np.uint8 for f in kept.frames),
+          f"engine frames are not {out_shape} uint8")
+    for name in ("modconv3x3", "fused_leaky_relu", "upfirdn2d", "depth_to_space2"):
+        check(launches_engine[name] > 0, f"kernel {name} was not launched by the engine")
+    lsb_max, lsb_sum = 0, 0.0
+    for i in range(0, ENGINE_FRAMES, ENGINE_BATCH):
+        want = pipe.process_batch(frames[i:min(i + ENGINE_BATCH, ENGINE_FRAMES)],
+                                  s_w, 0.5).cpu().numpy()
+        got = np.stack(kept.frames[i:i + len(want)])
+        d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+        lsb_max, lsb_sum = max(lsb_max, int(d.max())), lsb_sum + float(d.sum())
+    lsb_mean = lsb_sum / (ENGINE_FRAMES * np.prod(out_shape))
+    out_std = float(np.std(kept.frames[0]))
+    del kept
+    emit({"phase": "engine", "frames": ENGINE_FRAMES, "batch": ENGINE_BATCH,
+          "max_in_flight": 3, "batches": [16, 16, 8], "launches": launches_engine,
+          "max_lsb_vs_process_batch": lsb_max, "mean_lsb_vs_process_batch": lsb_mean,
+          "bound_max_lsb": ENGINE_MAX_LSB, "out_std_lsb": out_std,
+          "seconds": time.perf_counter() - t1})
+    check(lsb_max <= ENGINE_MAX_LSB, f"engine frames differ from process_batch "
+          f"by {lsb_max} LSB")
+    check(out_std > 10, "engine output frame is flat")
+
+    # engine timing: 160 frames at batch 16, beside process_batch at batch 16
+    engine(2 * ENGINE_BATCH, video.MemoryWriter(keep=False))  # warm-up
+    walls, stages = [], None
+    for _ in range(3):
+        timer = StageTimer()
+        wall_ms, res = _sync_ms(lambda: engine(ENGINE_TIMED_FRAMES,
+                                               video.MemoryWriter(keep=False), timer))
+        check(res.frames_written == ENGINE_TIMED_FRAMES, "engine lost frames")
+        walls.append(wall_ms / 1e3)
+        stages = res.stages
+    batch16 = frames[:ENGINE_BATCH]
+    pb = [_sync_ms(lambda: pipe.process_batch(batch16, s_w, 0.5))[0] / 1e3
+          for _ in range(6)][1:]
+    emit({"phase": "engine_timing", "frames": ENGINE_TIMED_FRAMES,
+          "batch": ENGINE_BATCH, "max_in_flight": 3, "dtype": "bfloat16",
+          "engine_fps_runs": [ENGINE_TIMED_FRAMES / w for w in walls],
+          "engine_fps_median": ENGINE_TIMED_FRAMES / float(np.median(walls)),
+          "process_batch_fps_median": ENGINE_BATCH / float(np.median(pb)),
+          "process_batch_fps_runs": [ENGINE_BATCH / t for t in pb],
+          "stages_last_run": stages,
+          "excludes": "decode and encode: in-memory frames in, in-memory "
+                      "frames out (no cv2)",
+          "nvidia_smi": smi, "setup_seconds": setup_s,
+          "seconds": time.perf_counter() - t0})
+    del pipe
+    torch.cuda.empty_cache()
+    return {k: launches_style[k] + launches_engine[k] for k in launches_engine}
+
+
+# ---------------------------------------------------------------------------
 # train: the stage-2 step
 
 
@@ -948,12 +1128,14 @@ def main():
         # the serving and bf16 training paths alone, timed and profiled (an
         # A/B of two trees runs this in each); no result line
         serve_phases(smi)
+        style_engine_phase(smi)
         train_phase(smi, "bfloat16", steps=3)
         return
     check(len(sys.argv) == 1,
           "usage: chip_smoke.py [--kernels NAME[,NAME...] | --paths]")
     summary = kernel_phase(dev)
     launches_serve = serve_phases(smi)
+    launches_style_engine = style_engine_phase(smi)
     launches_train = train_phase(smi, "bfloat16", steps=3)
     train_phase(smi, None, steps=2)
     train_f32_vs_cpu_phase()
@@ -962,8 +1144,10 @@ def main():
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
-         "launches": launches_serve.get(name, 0) + launches_train.get(name, 0),
+         "launches": launches_serve.get(name, 0) + launches_style_engine.get(name, 0)
+         + launches_train.get(name, 0),
          "launches_serve": launches_serve.get(name, 0),
+         "launches_style_engine": launches_style_engine.get(name, 0),
          "launches_train_step": launches_train.get(name, 0),
          **{k: summary[name][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

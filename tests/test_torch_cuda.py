@@ -299,3 +299,33 @@ def test_launch_counts_and_refusals(dev):
                             (3, 3))
     kernels.affine_warp(x, torch.zeros(1, 6, device=dev), (3, 3))
     assert kernels.launch_counts()["affine_warp"] == 1
+
+
+def test_compute_style_card_vs_cpu(dev):
+    """ToonifyPipeline.compute_style at the tiny configuration (pSp with
+    n_latent styles, the exemplar splice) on the card vs the CPU, float32
+    with TF32 off: relative L2 of s_w within 1e-4 (float32 sums in another
+    order); the bf16 pipeline prepares its style in float32 too, so both
+    card pipelines give the same code (1e-6: the same float32 calls)."""
+    from vtoonify_tpu_torch.models import bisenet, psp_encoder, vtoonify
+    from vtoonify_tpu_torch.pipeline.toonify import ToonifyPipeline
+
+    g = torch.Generator().manual_seed(3)
+    cfg = vtoonify.VToonifyConfig(in_size=32, out_size=128, channel_multiplier=1,
+                                  channel_max=256, num_res_layers=2)
+    pcfg = psp_encoder.PSPEncoderConfig(n_styles=cfg.n_latent)
+    style = dict(psp_params=psp_encoder.init_psp_encoder(pcfg, g), psp_cfg=pcfg,
+                 latent_avg=torch.randn((cfg.n_latent, 512), generator=g) * 0.3,
+                 exstyle=torch.randn((1, cfg.n_latent, 512), generator=g) * 0.3)
+    vt, parsing = vtoonify.init_vtoonify(cfg, g), bisenet.init_bisenet(generator=g)
+    pipes = [ToonifyPipeline(vt, cfg, parsing, dtype=dt, device=d, **style)
+             for dt, d in ((torch.float32, dev), (torch.bfloat16, dev),
+                           (torch.float32, "cpu"))]
+    face = np.random.RandomState(3).randint(0, 256, (256, 256, 3)).astype(np.uint8)
+    kernels.reset_launch_counts()
+    for color in (False, True):
+        card, card_bf16, host = (p.compute_style(face, color).cpu() for p in pipes)
+        assert card.dtype == card_bf16.dtype == torch.float32
+        assert ((card - card_bf16).norm() / card.norm()).item() <= 1e-6
+        assert ((card - host).norm() / host.norm()).item() <= 1e-4
+    assert kernels.launch_counts()["fused_leaky_relu"] > 0  # the mapping MLP

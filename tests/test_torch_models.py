@@ -173,13 +173,12 @@ def test_pipeline_surface(bisenet_pair):
         pipe.vt, cfg, frames, x_p.permute(0, 2, 3, 1), torch.from_numpy(s_w),
         0.5, torch.float32)
     np.testing.assert_array_equal(via_parsing[0].numpy(), out)
+    # style preparation is ported: tests/test_torch_checkpoint.py holds
+    # compute_style and the exemplar style to JAX
     for option in ({"size_bucket": 32}, {"packed_output": True},
-                   {"mesh": object()}, {"bucket_margin": 8},
-                   {"exstyle": s_w}):
+                   {"mesh": object()}, {"bucket_margin": 8}):
         with pytest.raises(NotImplementedError):
             T.ToonifyPipeline(p, cfg, bp, device="cpu", **option)
-    with pytest.raises(NotImplementedError):
-        pipe.compute_style(frame)
 
 
 def test_load_jax_params_is_strict():

@@ -488,6 +488,12 @@ def test_port_imports_no_jax():
         "import vtoonify_tpu_torch.convert.from_jax\n"
         "import vtoonify_tpu_torch.ops.kernels\n"
         "import vtoonify_tpu_torch.train.steps\n"
+        "import vtoonify_tpu_torch.cli.style_transfer\n"
+        "import vtoonify_tpu_torch.pipeline.video\n"
+        "import vtoonify_tpu_torch.pipeline.crop\n"
+        "import vtoonify_tpu_torch.pipeline.landmarks\n"
+        "import vtoonify_tpu_torch.pipeline.model_api\n"
+        "import vtoonify_tpu_torch.utils.checkpoint\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'vtoonify_tpu.')))\n"
         "assert not bad, bad\n"

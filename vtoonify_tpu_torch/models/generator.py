@@ -1,7 +1,7 @@
 """StyleGAN2 generator and discriminator (port of
 vtoonify_tpu/models/generator.py: `channel_table`, `GeneratorConfig`,
 `init_generator`, `style_mlp`, `styles_to_latent`, `make_noise`,
-`generator_apply`, `generate`, `DiscriminatorConfig`,
+`generator_apply`, `generate`, `mean_latent`, `DiscriminatorConfig`,
 `init_discriminator`, `minibatch_stddev`, `discriminator_apply`).
 
 The generator holds the full parameter tree (mapping MLP, constant input,
@@ -184,6 +184,14 @@ def generate(p: Generator, cfg: GeneratorConfig, styles, *,
         truncation_latent=truncation_latent, inject_index=inject_index)
     img = generator_apply(p, cfg, latent, noise=noise)
     return (img, latent) if return_latents else img
+
+
+def mean_latent(p: Generator, cfg: GeneratorConfig, generator, n_latent: int):
+    """The mean (1, style_dim) w of `n_latent` standard normal z drawn
+    from the explicit `torch.Generator` (on its device, float32)."""
+    z = torch.randn((n_latent, cfg.style_dim), generator=generator,
+                    device=generator.device)
+    return style_mlp(p, cfg, z.to(p.style[0].weight.device)).mean(0, keepdim=True)
 
 
 # ---------------------------------------------------------------------------

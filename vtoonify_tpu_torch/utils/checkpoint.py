@@ -1,0 +1,144 @@
+"""Reference-format checkpoints -> the port's modules (port of
+vtoonify_tpu/utils/checkpoint.py: `infer_vtoonify_config`,
+`load_reference_vtoonify`, `load_reference_dualstylegan`,
+`load_reference_stylegan`, `load_reference_faceparsing`,
+`load_reference_psp`, `load_exstyle_bank`, `load_directions`).
+
+Each loader reads a released PyTorch artifact (vtoonify_*.pt,
+generator.pt, encoder.pt, faceparsing.pth, exstyle_code.npy,
+directions.npy), maps its keys with `convert/torch_import.py` and loads the
+result strictly (`convert/from_jax.py::load_jax_params`: every parameter
+and buffer set, every converted leaf used) into a module built on the CPU.
+Move it to the card with `.to("cuda")` or through `ToonifyPipeline`.
+The JAX package's Orbax train-state save/load is not here.
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+from vtoonify_tpu_torch.convert import torch_import as TI
+from vtoonify_tpu_torch.convert.from_jax import load_jax_params
+from vtoonify_tpu_torch.models.bisenet import init_bisenet
+from vtoonify_tpu_torch.models.dualstylegan import init_dualstylegan
+from vtoonify_tpu_torch.models.generator import init_generator
+from vtoonify_tpu_torch.models.psp_encoder import PSPEncoderConfig, init_psp_encoder
+from vtoonify_tpu_torch.models.vtoonify import VToonifyConfig, init_vtoonify
+
+
+def _torch_load(path):
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def _init_generator():
+    # the random init is overwritten by the load; its own generator keeps
+    # the global RNG untouched
+    return torch.Generator().manual_seed(0)
+
+
+# channels[res] = _CH_BASE[res] * channel_multiplier for res > 32
+# (reference model/stylegan/model.py Generator.channels)
+_CH_BASE = {64: 256, 128: 128, 256: 64, 512: 32, 1024: 16}
+
+
+def infer_vtoonify_config(sd):
+    """Derive the VToonifyConfig from a reference state_dict's shapes.
+
+    Signals (reference model/vtoonify.py:128-205):
+      * backbone: top-level `res.*` AdaResBlocks exist only for dualstylegan
+      * out_size: the synthesis trunk has 2*(log2(out)-2) StyledConvs
+      * channel_multiplier: width of the last StyledConv vs the base table
+      * in_size: #encoder modules = log2(in) - 2
+      * num_res_layers: #VToonifyResBlocks in the penultimate encoder module
+    """
+    backbone = ("dualstylegan" if any(k.startswith("res.") for k in sd)
+                else "toonify")
+    pre = ("generator.generator.convs."
+           if backbone == "dualstylegan" else "generator.convs.")
+    conv_ids = {int(m.group(1)) for k in sd
+                for m in [re.match(re.escape(pre) + r"(\d+)\.", k)] if m}
+    if not conv_ids:
+        raise ValueError("not a VToonify checkpoint: no synthesis convs")
+    out_size = 2 ** (len(conv_ids) // 2 + 2)
+    last_w = sd[f"{pre}{max(conv_ids)}.conv.weight"]
+    cm = (int(last_w.shape[1]) // _CH_BASE[out_size]
+          if out_size in _CH_BASE else 2)
+    enc_mods = {int(k.split(".")[1]) for k in sd if k.startswith("encoder.")}
+    in_size = 2 ** (len(enc_mods) + 2)
+    res_stage = max(enc_mods) - 1
+    num_res_layers = len(
+        {k.split(".")[2] for k in sd if k.startswith(f"encoder.{res_stage}.")})
+    if backbone == "dualstylegan" and num_res_layers > 6:
+        # the reference's `self.res` ModuleList always has 7 entries
+        # (model/vtoonify.py:203-209), so its forward fails past 6 encoder
+        # resblocks (`self.res[ii+1]`, :236-239)
+        raise ValueError(
+            f"checkpoint has {num_res_layers} encoder resblocks; the "
+            "dualstylegan backbone supports at most 6 (the ModRes bank has "
+            "7 entries, matching the reference)")
+    return VToonifyConfig(in_size=in_size, out_size=out_size,
+                          channel_multiplier=cm,
+                          num_res_layers=num_res_layers, backbone=backbone)
+
+
+def load_reference_vtoonify(path: str, cfg=None):
+    """vtoonify_*.pt ({'g_ema': state_dict}) -> (VToonify, cfg); the config
+    is inferred from the checkpoint when not given."""
+    ckpt = _torch_load(path)
+    sd = TI.flatten_torch_state(ckpt.get("g_ema", ckpt))
+    if cfg is None:
+        cfg = infer_vtoonify_config(sd)
+    return load_jax_params(init_vtoonify(cfg, _init_generator()),
+                           TI.convert_vtoonify(sd, cfg)), cfg
+
+
+def load_reference_dualstylegan(path: str, cfg):
+    """generator.pt ({'g_ema': state_dict}) -> DualStyleGAN."""
+    ckpt = _torch_load(path)
+    sd = TI.flatten_torch_state(ckpt.get("g_ema", ckpt))
+    return load_jax_params(init_dualstylegan(cfg, _init_generator()),
+                           TI.convert_dualstylegan(sd, cfg))
+
+
+def load_reference_stylegan(path: str, cfg):
+    """A StyleGAN2 generator ({'g_ema': state_dict}) -> Generator."""
+    ckpt = _torch_load(path)
+    sd = TI.flatten_torch_state(ckpt.get("g_ema", ckpt))
+    return load_jax_params(init_generator(cfg, _init_generator()),
+                           TI.convert_generator(sd, cfg))
+
+
+def load_reference_faceparsing(path: str):
+    """faceparsing.pth (a bare state_dict) -> BiSeNet."""
+    sd = TI.flatten_torch_state(_torch_load(path))
+    return load_jax_params(init_bisenet(generator=_init_generator()),
+                           TI.convert_bisenet(sd))
+
+
+def load_reference_psp(path: str, cfg=None):
+    """encoder.pt (pSp ckpt with state_dict + latent_avg) -> (PSPEncoder,
+    latent_avg float32 tensor, cfg). n_styles is inferred from the
+    checkpoint when cfg is None (released checkpoints carry 18 style heads)."""
+    ckpt = _torch_load(path)
+    sd = TI.flatten_torch_state(ckpt["state_dict"])
+    if cfg is None:
+        n_styles = len({k.split(".")[2] for k in sd
+                        if k.startswith("encoder.styles.")})
+        cfg = PSPEncoderConfig(n_styles=n_styles or 18)
+    params, latent_avg = TI.load_psp_standalone(
+        {"state_dict": sd, "latent_avg": np.asarray(ckpt["latent_avg"])}, cfg)
+    psp = load_jax_params(init_psp_encoder(cfg, _init_generator()), params)
+    return psp, torch.from_numpy(latent_avg), cfg
+
+
+def load_exstyle_bank(path: str):
+    """exstyle_code.npy -> ({name: (1, n_latent, 512) z+ code}, ordered names)."""
+    bank = np.load(path, allow_pickle=True).item()
+    return {k: np.asarray(v) for k, v in bank.items()}, list(bank.keys())
+
+
+def load_directions(path: str):
+    return np.asarray(np.load(path))
