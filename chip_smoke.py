@@ -4,6 +4,7 @@
     python3 chip_smoke.py --kernels upfirdn2d,depth_to_space2   # those alone
     python3 chip_smoke.py --kernels fused_leaky_relu,affine_warp
     python3 chip_smoke.py --paths   # serving, style + engine, bf16 training
+                                    # (D stage 2, D stage 1, T stage 2)
 
 Builds the port's five hand-written kernels from vtoonify_tpu_torch/csrc
 with nvcc (sm_90a, one nvcc per source, in parallel), checks each against its
@@ -27,7 +28,15 @@ with random weights from a seeded torch.Generator:
   teacher synthesis with the augment, D step, G step with LPIPS and the
   temporal crop, EMA) at batch 2 in bfloat16 and float32, timed and
   profiled; and the trainer's --tiny configuration for one step on the card
-  and on the CPU from the same modules and draws, compared.
+  and on the CPU from the same modules and draws, compared;
+* pretrain_d, pretrain_t, train_t: the flagship stage-1 steps of VToonify-D
+  and VToonify-T at batch 8 and the VToonify-T stage-2 step at batch 2
+  (blended G1, unconditional D), bf16, timed and profiled;
+  train_tiny_vs_cpu: the --tiny D stage-1, T stage-2 and T stage-1 steps on
+  the card against the CPU;
+* train_cli: both trainer CLIs (cli/train_d.py, cli/train_t.py), both
+  stages at --tiny on reference-format random files, with --export_pt and
+  --resume; the exported checkpoints load in the pipeline and toonify.
 
 Each phase prints one JSON object on a line of its own with its wall
 seconds; the line before the last holds the per-kernel summary, and the last
@@ -70,8 +79,8 @@ TOL_GRAD = 1e-4  # backward: the same plain ops on both sides (only the
 # (float32 sums ordered differently through D, LPIPS and three student
 # forwards); gradients to 1e-3 in relative L2 norm; Adam's first update
 # (~ +-lr per element) compared as tests/test_torch_train_step.py does, on
-# the elements whose |g| is above the noise floor (at least 5% of them with
-# these random weights; most gradients are below 100 eps = 1e-6)
+# each parameter's elements whose |g| is above 1e-3 of its largest and above
+# the noise floor 100 eps = 1e-6 (at least 5% of all elements)
 STEP_RTOL = 2e-3
 # compute_style, card vs CPU in float32 (TF32 off): relative L2 of s_w; pSp's
 # 24 IR-SE units and the mapping MLP differ only in the order of float32 sums
@@ -894,7 +903,7 @@ def train_setup(cfg, dcfg, tcfg, batch, g):
     inputs = dict(
         directions=torch.randn((4, n_latent, 512), generator=g) * 0.1,
         style=torch.randn((batch, n_latent, 512), generator=g) * 0.3,
-        style_ind=torch.arange(batch) % dcfg.style_num,
+        style_ind=torch.arange(batch) % (dcfg.style_num or 1),
         weights=[0.5] * 7 + [1.0] * (n_latent - 7))
     return pcfg, mods, inputs
 
@@ -1011,13 +1020,70 @@ def train_phase(smi, compute_dtype, steps):
     return launches
 
 
+def _step_result(state, metrics, seconds):
+    """What a card-vs-CPU comparison reads from a state after one step:
+    the metrics, the new parameters and gradients (Adam's first moment over
+    1 - beta1) of each optimizer, the EMA."""
+    from vtoonify_tpu_torch.train.steps import ADAM_BETA1
+
+    opts = {"trainable": (state.g_opt, state.trainable)}
+    if hasattr(state, "d_opt"):
+        opts["d"] = (state.d_opt, state.d)
+    return dict(
+        metrics={k: float(v) for k, v in metrics.items()},
+        new={k: _flat(m).cpu() for k, (_, m) in opts.items()},
+        grads={k: torch.cat([(opt.state[p]["exp_avg"] / (1 - ADAM_BETA1))
+                             .reshape(-1).cpu() for p in m.parameters()])
+               for k, (opt, m) in opts.items()},
+        sizes={k: [p.numel() for p in m.parameters()] for k, (_, m) in opts.items()},
+        ema=_flat(state.ema).cpu(), seconds=seconds)
+
+
+def _check_card_vs_cpu(rec, out, lr, prefix=""):
+    """Metrics within STEP_RTOL, gradients within 1e-3 relative L2, Adam's
+    first updates as tests/test_torch_train_step.py compares them (on each
+    parameter's elements whose |g| is above 1e-3 of that parameter's
+    largest and above 100 eps), and the EMA within 1e-6; the findings go
+    into `rec` under `prefix`."""
+    from vtoonify_tpu_torch.train.steps import ADAM_EPS
+
+    for k in out["cuda"]["metrics"]:
+        a, b = out["cuda"]["metrics"][k], out["cpu"]["metrics"][k]
+        check(np.isfinite(a) and abs(a - b) <= STEP_RTOL * abs(b) + 1e-9,
+              f"{prefix}train step metric {k}: card {a} vs CPU {b}")
+    covered = total = 0
+    for k in out["cpu"]["new"]:
+        err = (out["cuda"]["new"][k] - out["cpu"]["new"][k]).abs()  # same start
+        g = out["cpu"]["grads"][k].abs()
+        check(err.max().item() <= 2 * lr + 1e-7, f"{prefix}{k}: updates differ by > 2 lr")
+        mask = torch.cat([(gi > 1e-3 * gi.max()) & (gi > 100 * ADAM_EPS)
+                          for gi in g.split(out["cpu"]["sizes"][k])])
+        e = err[mask]
+        rec[f"{prefix}{k}_masked_max_err_over_lr"] = e.max().item() / lr if e.numel() else 0.0
+        rec[f"{prefix}{k}_masked_frac_over_1e-3_lr"] = (
+            (e > 1e-3 * lr).float().mean().item() if e.numel() else 0.0)
+        check(rec[f"{prefix}{k}_masked_max_err_over_lr"] <= 0.02
+              and rec[f"{prefix}{k}_masked_frac_over_1e-3_lr"] <= 1e-2,
+              f"{prefix}{k}: card and CPU updates disagree")
+        covered, total = covered + int(mask.sum()), total + mask.numel()
+        rec[f"{prefix}{k}_grad_rel_l2"] = ((out["cuda"]["grads"][k] - out["cpu"]["grads"][k])
+                                           .norm() / out["cpu"]["grads"][k].norm()).item()
+        check(rec[f"{prefix}{k}_grad_rel_l2"] <= 1e-3,
+              f"{prefix}{k}: card and CPU gradients differ")
+    ema_err = (out["cuda"]["ema"] - out["cpu"]["ema"]).abs().max().item()
+    rec[f"{prefix}mask_coverage"] = covered / total
+    rec[f"{prefix}ema_max_abs_err"] = ema_err
+    check(covered > 0.05 * total, f"{prefix}update comparison covers too few elements")
+    check(ema_err <= 1e-6, f"{prefix}EMA differs between card and CPU")
+
+
 def train_f32_vs_cpu_phase():
     """The trainer's --tiny configuration, one step at batch 2 on the card
     and on the CPU from identical modules and one TrainDDraws, float32 with
     TF32 off."""
     from vtoonify_tpu_torch.models.vtoonify import CondDiscriminatorConfig, VToonifyConfig
     from vtoonify_tpu_torch.train.steps import (
-        ADAM_BETA1, ADAM_EPS, TrainDConfig, init_train_d_state, sample_train_d_draws)
+        TrainDConfig, init_train_d_state, sample_train_d_draws)
 
     t0 = time.perf_counter()
     g = torch.Generator().manual_seed(SEED + 1)
@@ -1026,7 +1092,6 @@ def train_f32_vs_cpu_phase():
     dcfg = CondDiscriminatorConfig(size=64, channel_multiplier=1,
                                    use_condition=True, style_num=4)
     tcfg = TrainDConfig(crop_size=96, lpips_size=64, aug_max_pad=40)
-    lr = tcfg.lr
     pcfg, mods_cpu, inputs = train_setup(cfg, dcfg, tcfg, 2, g)
     with torch.no_grad():  # random noise weights and biases: nothing blind
         gen = mods_cpu["vt"].generator.generator
@@ -1043,51 +1108,396 @@ def train_f32_vs_cpu_phase():
         m = run_step(state, mods, pcfg, inputs, cfg, dcfg, tcfg, True,
                      draws=draws.to(state.wc_prev.device))
         torch.cuda.synchronize()
-        grads = {"trainable": torch.cat([
-            (state.g_opt.state[p]["exp_avg"] / (1 - ADAM_BETA1)).reshape(-1).cpu()
-            for p in state.trainable.parameters()]),
-                 "d": torch.cat([
-            (state.d_opt.state[p]["exp_avg"] / (1 - ADAM_BETA1)).reshape(-1).cpu()
-            for p in state.d.parameters()])}
-        new = {"trainable": _flat(state.trainable).cpu(), "d": _flat(state.d).cpu()}
-        out[where] = dict(metrics={k: float(v) for k, v in m.items()}, new=new,
-                          grads=grads, ema=_flat(state.ema).cpu(),
-                          seconds=time.perf_counter() - t1)
-    # the updates: both sides started from the same float32 parameters
+        out[where] = _step_result(state, m, time.perf_counter() - t1)
     rec = {"phase": "train_f32_vs_cpu", "config": "--tiny: VToonifyConfig(32 -> "
            "128 px, channel_multiplier 1, 2 res layers), D 64 px cm 1, crop 96, "
            "lpips 64, aug_max_pad 40, batch 2, color jitter on",
            "metrics_cuda": out["cuda"]["metrics"], "metrics_cpu": out["cpu"]["metrics"],
            "cuda_step_s": out["cuda"]["seconds"], "cpu_step_s": out["cpu"]["seconds"]}
-    for k in out["cuda"]["metrics"]:
-        a, b = out["cuda"]["metrics"][k], out["cpu"]["metrics"][k]
-        check(np.isfinite(a) and abs(a - b) <= STEP_RTOL * abs(b) + 1e-9,
-              f"train step metric {k}: card {a} vs CPU {b}")
-    covered = total = 0
-    for k in ("trainable", "d"):
-        d_card = out["cuda"]["new"][k] - out["cpu"]["new"][k]
-        g = out["cpu"]["grads"][k].abs()
-        err = d_card.abs()  # both updates start from the same parameters
-        check(err.max().item() <= 2 * lr + 1e-7, f"{k}: updates differ by > 2 lr")
-        mask = (g > 1e-3 * g.max()) & (g > 100 * ADAM_EPS)
-        e = err[mask]
-        rec[f"{k}_masked_max_err_over_lr"] = e.max().item() / lr if e.numel() else 0.0
-        rec[f"{k}_masked_frac_over_1e-3_lr"] = (e > 1e-3 * lr).float().mean().item() \
-            if e.numel() else 0.0
-        check(rec[f"{k}_masked_max_err_over_lr"] <= 0.02
-              and rec[f"{k}_masked_frac_over_1e-3_lr"] <= 1e-2,
-              f"{k}: card and CPU updates disagree")
-        covered, total = covered + int(mask.sum()), total + mask.numel()
-        g_card = out["cuda"]["grads"][k]
-        rec[f"{k}_grad_rel_l2"] = ((g_card - out["cpu"]["grads"][k]).norm()
-                                   / out["cpu"]["grads"][k].norm()).item()
-        check(rec[f"{k}_grad_rel_l2"] <= 1e-3, f"{k}: card and CPU gradients differ")
-    ema_err = (out["cuda"]["ema"] - out["cpu"]["ema"]).abs().max().item()
-    rec.update(mask_coverage=covered / total, ema_max_abs_err=ema_err,
-               seconds=time.perf_counter() - t0)
+    try:
+        _check_card_vs_cpu(rec, out, tcfg.lr)
+    finally:
+        rec["seconds"] = time.perf_counter() - t0
+        emit(rec)
+
+
+# ---------------------------------------------------------------------------
+# stage 1 (D and T) and VToonify-T stage 2
+
+
+def _timed_steps(run, steps, expect, table, with_profile=True):
+    """1 warm-up call of run() (one training step), then `steps` timed ones
+    (host wall ending in a synchronize), each with finite metrics and every
+    kernel in `expect` launched; then one profiled step. Returns the
+    record's fields and the launches of the first timed step."""
+    torch.cuda.reset_peak_memory_stats()
+    times, per_step = [], []
+    from vtoonify_tpu_torch.ops import kernels as K
+
+    for i in range(1 + steps):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t1 = time.perf_counter()
+        metrics = run()
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t1)
+        per_step.append(K.launch_counts())
+        vals = {k: float(v) for k, v in metrics.items()}
+        check(all(np.isfinite(v) for v in vals.values()),
+              f"non-finite loss in step {i}: {vals}")
+        for name in expect:
+            check(per_step[-1][name] > 0, f"kernel {name} was not launched by step {i}")
+    rec = {"steps_timed": steps, "s_per_iter": times,
+           "p50_s_per_iter": float(np.median(times)),
+           "min_max_s_per_iter": [min(times), max(times)],
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches_per_step": per_step[1], "metrics": vals}
+    if with_profile:
+        rec["profile"] = device_profile(run, table)
+        rec["device_busy_share"] = rec["profile"]["device_busy_share"]
+    return rec, per_step[1]
+
+
+STAGE1_KERNELS = ("modconv3x3", "fused_leaky_relu", "upfirdn2d", "depth_to_space2")
+
+
+def pretrain_d_phase(smi, steps=3):
+    """The flagship VToonify-D stage-1 step at batch 8 in bf16
+    (bench_train.py::bench_pretrain's configuration, pSp absent), from
+    init_pretrain_state with no device."""
+    from vtoonify_tpu_torch.models.bisenet import init_bisenet
+    from vtoonify_tpu_torch.models.vtoonify import VToonifyConfig, init_vtoonify
+    from vtoonify_tpu_torch.train.steps import (
+        init_pretrain_state, pretrain_step, split_trainable)
+
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(SEED)
+    cfg = VToonifyConfig()
+    vt, parsing = init_vtoonify(cfg, g), init_bisenet(generator=g)
+    directions = torch.randn((4, cfg.n_latent, 512), generator=g) * 0.1
+    style = torch.randn((8, cfg.n_latent, 512), generator=g) * 0.3
+    state = init_pretrain_state(vt)
+    check(next(state.trainable.parameters()).device.type == "cuda",
+          "init_pretrain_state without a device did not run on the card")
+    _, frozen = split_trainable(vt, pretrain=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    before = _flat(state.trainable)
+    setup_s = time.perf_counter() - t0
+    rec, launches = _timed_steps(
+        lambda: pretrain_step(state, frozen, parsing, cfg, directions, style, 0.5,
+                              compute_dtype="bfloat16", generator=gen),
+        steps, STAGE1_KERNELS, "pretrain_d_profile.txt")
+    moved = (_flat(state.trainable) - before).abs().sum().item()
+    check(moved > 0, "the encoder did not move")
+    emit({"phase": "pretrain_d", "config": "VToonifyConfig() (VToonify-D, "
+          "DualStyleGAN teacher) + BiSeNet, pretrain_step, batch 8, d_s 0.5",
+          "batch": 8, "dtype": "bfloat16", **rec, "moved_abs_sum": moved,
+          "setup_seconds": setup_s, "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi})
+    del state, vt, frozen
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_t_phase(smi, stages=("pretrain", "train"), steps=3):
+    """The flagship VToonify-T: G1 blended (the cartoon recipe) from two
+    random StyleGAN2 generators, the un-blended base G0; stage 1 at batch 8
+    and stage 2 at batch 2 (unconditional D at 256 px), bf16. Returns the
+    launches of one step of each stage run."""
+    from vtoonify_tpu_torch.cli.train_t import STYLE_BLEND_WEIGHTS
+    from vtoonify_tpu_torch.models.generator import init_generator
+    from vtoonify_tpu_torch.models.vtoonify import (
+        CondDiscriminatorConfig, VToonifyConfig, init_cond_discriminator, init_vtoonify)
+    from vtoonify_tpu_torch.train import steps as S
+    from vtoonify_tpu_torch.utils.blend import blend_generators
+
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(SEED + 2)
+    cfg = VToonifyConfig(backbone="toonify")
+    dcfg = CondDiscriminatorConfig(size=256, channel_multiplier=2)
+    tcfg = S.TrainDConfig(compute_dtype="bfloat16")
+    pcfg, mods, _ = train_setup(cfg, dcfg, tcfg, 2, g)
+    base = init_generator(cfg.generator, g)
+    mods["vt"].generator = blend_generators(init_generator(cfg.generator, g), base,
+                                            STYLE_BLEND_WEIGHTS["cartoon"])
+    directions = torch.randn((4, cfg.n_latent, 512), generator=g) * 0.1
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    setup_s = time.perf_counter() - t0
+    launches = {}
+    if "pretrain" in stages:
+        t1 = time.perf_counter()
+        state = S.init_pretrain_state(mods["vt"])
+        _, frozen = S.split_trainable(mods["vt"], pretrain=True)
+        rec, launches["pretrain_t"] = _timed_steps(
+            lambda: S.pretrain_t_step(state, frozen, base, mods["parsing"], cfg,
+                                      directions, 8, compute_dtype="bfloat16",
+                                      generator=gen),
+            steps, STAGE1_KERNELS, "pretrain_t_profile.txt")
+        emit({"phase": "pretrain_t", "config": "VToonifyConfig(backbone='toonify') "
+              "+ BiSeNet, G1 = blend(random, random G0, cartoon weights), "
+              "pretrain_t_step, batch 8", "batch": 8, "dtype": "bfloat16", **rec,
+              "seconds": time.perf_counter() - t1, "setup_seconds": setup_s,
+              "nvidia_smi": smi})
+        del state, frozen
+        torch.cuda.empty_cache()
+    if "train" in stages:
+        t1 = time.perf_counter()
+        state = S.init_train_t_state(mods["vt"], mods["d"], tcfg)
+        check(next(state.d.parameters()).device.type == "cuda",
+              "init_train_t_state without a device did not run on the card")
+        _, frozen = S.split_trainable(mods["vt"])
+        before = {k: _flat(m) for k, m in (("trainable", state.trainable),
+                                           ("d", state.d))}
+        rec, launches["train_t"] = _timed_steps(
+            lambda: S.train_t_step(state, frozen, base, mods["parsing"], mods["psp"],
+                                   pcfg, None, mods["lpips"], cfg, dcfg, tcfg,
+                                   directions, 2, 0.3, generator=gen),
+            steps, (*STAGE1_KERNELS, "affine_warp"), "train_t_profile.txt")
+        moved = {k: (_flat(m) - before[k]).abs().sum().item()
+                 for k, m in (("trainable", state.trainable), ("d", state.d))}
+        check(all(v > 0 for v in moved.values()), f"parameters did not move: {moved}")
+        emit({"phase": "train_t", "config": "VToonifyConfig(backbone='toonify') + "
+              "CondDiscriminatorConfig(256, 2, unconditional) + pSp (18 styles) + "
+              "LPIPS + BiSeNet, G1 blended, TrainDConfig(compute_dtype='bfloat16') "
+              "defaults, batch 2", "batch": 2, "dtype": "bfloat16", **rec,
+              "moved_abs_sum": moved, "seconds": time.perf_counter() - t1,
+              "nvidia_smi": smi})
+        del state, frozen
+    del mods, base
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_tiny_vs_cpu_phase():
+    """The trainers' --tiny configuration, float32 with TF32 off: one
+    VToonify-D stage-1 step, one VToonify-T stage-2 step and one T stage-1
+    step, each on the card and on the CPU from the same modules and draws."""
+    from vtoonify_tpu_torch.models.generator import init_generator
+    from vtoonify_tpu_torch.models.vtoonify import CondDiscriminatorConfig, VToonifyConfig
+    from vtoonify_tpu_torch.train import steps as S
+
+    t0 = time.perf_counter()
+    rec = {"phase": "train_tiny_vs_cpu", "config": "--tiny: VToonifyConfig(32 -> 128 "
+           "px, channel_multiplier 1, 2 res layers), batch 2; T: D 64 px cm 1 "
+           "(unconditional), crop 96, lpips 64, aug_max_pad 40"}
+    tcfg = S.TrainDConfig(crop_size=96, lpips_size=64, aug_max_pad=40)
+    for which in ("pretrain_d", "train_t", "pretrain_t"):
+        g = torch.Generator().manual_seed(SEED + 3)
+        backbone = "dualstylegan" if which == "pretrain_d" else "toonify"
+        cfg = VToonifyConfig(in_size=32, out_size=128, channel_multiplier=1,
+                             num_res_layers=2, backbone=backbone)
+        dcfg = CondDiscriminatorConfig(size=64, channel_multiplier=1)
+        pcfg, mods_cpu, inputs = train_setup(cfg, dcfg, tcfg, 2, g)
+        mods_cpu["base"] = init_generator(cfg.generator, g)
+        with torch.no_grad():  # random noise weights and biases: nothing blind
+            vt_gen = mods_cpu["vt"].generator
+            for gen in (mods_cpu["base"], getattr(vt_gen, "generator", vt_gen)):
+                for blk in [gen.conv1, *gen.convs]:
+                    blk.noise.weight.fill_(0.1)
+                    blk.act_bias.normal_(0.0, 0.3, generator=g)
+        draws = (S.sample_train_t_draws(g, 2, cfg, tcfg, 4) if which == "train_t"
+                 else S.sample_pretrain_draws(g, 2, cfg, 4))
+        out = {}
+        for where in ("cuda", "cpu"):
+            m = copy.deepcopy(mods_cpu)
+            device = None if where == "cuda" else "cpu"
+            t1 = time.perf_counter()
+            if which == "train_t":
+                state = S.init_train_t_state(m["vt"], m["d"], tcfg, device=device)
+                _, frozen = S.split_trainable(m["vt"])
+                dev = next(state.d.parameters()).device
+                metrics = S.train_t_step(
+                    state, frozen, m["base"], m["parsing"], m["psp"], pcfg, None,
+                    m["lpips"], cfg, dcfg, tcfg, inputs["directions"], 2, 0.3,
+                    draws=draws.to(dev))
+            else:
+                state = S.init_pretrain_state(m["vt"], device=device)
+                _, frozen = S.split_trainable(m["vt"], pretrain=True)
+                dev = next(state.trainable.parameters()).device
+                if which == "pretrain_d":
+                    metrics = S.pretrain_step(state, frozen, m["parsing"], cfg,
+                                              inputs["directions"], inputs["style"],
+                                              0.6, draws=draws.to(dev))
+                else:
+                    metrics = S.pretrain_t_step(state, frozen, m["base"], m["parsing"],
+                                                cfg, inputs["directions"], 2,
+                                                draws=draws.to(dev))
+            torch.cuda.synchronize()
+            out[where] = _step_result(state, metrics, time.perf_counter() - t1)
+        rec[f"{which}_metrics_cuda"] = out["cuda"]["metrics"]
+        rec[f"{which}_metrics_cpu"] = out["cpu"]["metrics"]
+        rec[f"{which}_step_s"] = {k: out[k]["seconds"] for k in out}
+        try:
+            _check_card_vs_cpu(rec, out, tcfg.lr, prefix=f"{which}.")
+        except SystemExit:
+            rec["seconds"] = time.perf_counter() - t0
+            emit(rec)
+            raise
+    rec["seconds"] = time.perf_counter() - t0
     emit(rec)
-    check(covered > 0.05 * total, "update comparison covers too few elements")
-    check(ema_err <= 1e-6, "EMA differs between card and CPU")
+
+
+# ---------------------------------------------------------------------------
+# the trainer CLIs on reference-format random files
+
+
+_BISENET_CP = ("resnet", "arm16", "arm32", "conv_head32", "conv_head16", "conv_avg")
+_PSP_INPUT = ("input_conv", "input_bn", "input_prelu")
+_PSP_BODY = {"bn0": "res_layer.0", "conv1": "res_layer.1", "prelu": "res_layer.2",
+             "conv2": "res_layer.3", "bn2": "res_layer.4", "se": "res_layer.5",
+             "shortcut_conv": "shortcut_layer.0", "shortcut_bn": "shortcut_layer.1"}
+
+
+def bisenet_reference_state(module):
+    """A port BiSeNet's state under the reference BiSeNet's keys (the
+    inverse of convert/torch_import.py::convert_bisenet's key map)."""
+    sd = {}
+    for k, v in module.state_dict().items():
+        k = k.replace(".down_conv.", ".downsample.0.").replace(".down_bn.", ".downsample.1.")
+        sd[("cp." + k) if k.split(".")[0] in _BISENET_CP else k] = v.clone()
+    return sd
+
+
+def psp_reference_state(module):
+    """A port PSPEncoder's state as a reference pSp checkpoint's
+    `encoder.`-prefixed GradualStyleEncoder keys (the inverse of
+    convert_psp_encoder's key map)."""
+    sd = {}
+    for k, v in module.state_dict().items():
+        parts = k.split(".")
+        if parts[0] in _PSP_INPUT:
+            parts[0] = f"input_layer.{_PSP_INPUT.index(parts[0])}"
+        elif parts[0] == "body":
+            parts[2] = _PSP_BODY[parts[2]]
+        elif parts[0] == "styles" and parts[2] == "convs":
+            parts[3] = str(2 * int(parts[3]))  # LeakyReLUs in between
+        sd["encoder." + ".".join(parts)] = v.clone()
+    return sd
+
+
+def _write_reference_files(root, g):
+    """The trainers' inputs at the --tiny configuration, random weights from
+    `g`, in the reference's formats: DualStyleGAN generator.pt, the base and
+    finetuned StyleGANs (through the port's exporter), faceparsing.pth,
+    encoder.pt (pSp, n_latent styles), exstyle_code.npy, directions.npy."""
+    from vtoonify_tpu_torch.convert.torch_export import export_dualstylegan, export_generator
+    from vtoonify_tpu_torch.models.bisenet import init_bisenet
+    from vtoonify_tpu_torch.models.dualstylegan import init_dualstylegan
+    from vtoonify_tpu_torch.models.generator import init_generator
+    from vtoonify_tpu_torch.models.psp_encoder import PSPEncoderConfig, init_psp_encoder
+    from vtoonify_tpu_torch.models.vtoonify import VToonifyConfig
+
+    cfg = VToonifyConfig(in_size=32, out_size=128, channel_multiplier=1, num_res_layers=2)
+    n = cfg.n_latent
+
+    def g_ema(path, sd):
+        torch.save({"g_ema": {k: torch.from_numpy(np.ascontiguousarray(v))
+                              for k, v in sd.items()}}, str(path))
+
+    ds = init_dualstylegan(cfg.dualstylegan, g)
+    with torch.no_grad():
+        for blk in ds.generator.to_rgbs:
+            blk.bias.normal_(0.0, 0.5, generator=g)
+    g_ema(root / "generator.pt", export_dualstylegan(ds, cfg.dualstylegan))
+    for name in ("stylegan.pt", "finetune.pt"):
+        g_ema(root / name, export_generator(init_generator(cfg.generator, g), cfg.generator))
+    torch.save(bisenet_reference_state(init_bisenet(generator=g)), str(root / "faceparsing.pth"))
+    psp = init_psp_encoder(PSPEncoderConfig(n_styles=n), g)
+    torch.save({"state_dict": psp_reference_state(psp),
+                "latent_avg": torch.randn((n, 512), generator=g) * 0.3},
+               str(root / "encoder.pt"))
+    np.save(str(root / "exstyle_code.npy"),
+            {f"style{i}.png": (torch.randn((1, n, 512), generator=g) * 0.3).numpy()
+             for i in range(3)}, allow_pickle=True)
+    np.save(str(root / "directions.npy"), (torch.randn((4, n, 512), generator=g) * 0.1).numpy())
+
+
+def train_cli_phase():
+    """cli.train_d.main and cli.train_t.main on the card at --tiny
+    --allow_random_lpips, on reference-format random files in a temporary
+    directory: 2 iterations of each stage with --export_pt, then --resume
+    to 3; the metrics finite, the files the trainers write there, the
+    exported checkpoints loaded strictly and run through one
+    ToonifyPipeline.process_batch."""
+    import io
+    import os
+    import tempfile
+
+    from vtoonify_tpu_torch.cli import train_d, train_t
+    from vtoonify_tpu_torch.ops import kernels as K
+    from vtoonify_tpu_torch.pipeline.toonify import ToonifyPipeline
+    from vtoonify_tpu_torch.utils import checkpoint as CK
+
+    t0 = time.perf_counter()
+    rec = {"phase": "train_cli", "argv": "--tiny --allow_random_lpips --batch 2 "
+           "--export_pt: --pretrain --iter 2, --pretrain --iter 3 --resume, --iter 2, "
+           "--iter 3 --resume"}
+    import PIL  # the sample grids are jpgs
+
+    rec["pillow"] = PIL.__version__
+    cwd = os.getcwd()
+    log = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        _write_reference_files(root, torch.Generator().manual_seed(SEED + 4))
+        inputs = ["--faceparsing_path", str(root / "faceparsing.pth"),
+                  "--style_encoder_path", str(root / "encoder.pt"),
+                  "--direction_path", str(root / "directions.npy"),
+                  "--tiny", "--allow_random_lpips", "--batch", "2", "--export_pt",
+                  "--log_every", "10"]
+        clis = {
+            "d": (train_d.main, ["--stylegan_path", str(root / "generator.pt"),
+                                 "--exstyle_path", str(root / "exstyle_code.npy"),
+                                 "--style_id", "1"], "vtoonify_s_d_c", "dualstylegan"),
+            "t": (train_t.main, ["--stylegan_path", str(root / "stylegan.pt"),
+                                 "--finetunegan_path", str(root / "finetune.pt")],
+                  "vtoonify", "toonify")}
+        os.chdir(tmp)
+        try:
+            K.reset_launch_counts()
+            for name, (main, extra, stem, backbone) in clis.items():
+                argv = [*inputs, *extra, "--name", name]
+                with contextlib.redirect_stdout(log):
+                    for stage in (["--pretrain"], []):
+                        main([*argv, *stage, "--iter", "2"])
+                        main([*argv, *stage, "--iter", "3", "--resume"])
+                text = log.getvalue()
+                check("resumed pretrain state at step 2" in text
+                      and "resumed full train state at step 2" in text,
+                      f"train_{name}: --resume did not resume")
+                recs = [json.loads(line) for line in open(f"log/{name}/metrics.jsonl")]
+                check([r["step"] for r in recs] == [0, 1, 2, 0, 1, 2]
+                      and all(np.isfinite(v) for r in recs for v in r.values()),
+                      f"train_{name}: metrics {recs}")
+                files = sorted(os.listdir(f"checkpoint/{name}"))
+                want = sorted(["pretrain.ckpt", "pretrain.pt", "pretrain_state.ckpt",
+                               f"{stem}.ckpt", f"{stem}.pt", "train_state.ckpt"])
+                check(files == want, f"train_{name} wrote {files}, not {want}")
+                grids = sorted(os.listdir(f"log/{name}"))
+                check(any(f.endswith(".jpg") for f in grids),
+                      f"train_{name}: no sample grid in {grids}")
+                vt, cfg = CK.load_reference_vtoonify(f"checkpoint/{name}/{stem}.pt")
+                check(cfg.backbone == backbone, f"train_{name}: exported {cfg.backbone}")
+                pipe = ToonifyPipeline(vt, cfg, CK.load_reference_faceparsing(
+                    str(root / "faceparsing.pth")))
+                frames = np.random.RandomState(0).randint(0, 256, (2, 32, 32, 3), np.uint8)
+                s_w = np.random.RandomState(1).randn(1, cfg.n_latent, 512).astype(
+                    np.float32) * 0.3
+                out = pipe.process_batch(frames, s_w, 0.5).cpu()
+                check(tuple(out.shape) == (2, 128, 128, 3) and out.dtype == torch.uint8,
+                      f"train_{name}: the exported model gave {tuple(out.shape)}")
+                rec[f"train_{name}"] = {"last_metrics": recs[-1], "files": files,
+                                        "grids": grids}
+            launches = K.launch_counts()
+        finally:
+            os.chdir(cwd)
+            (OUT_DIR / "train_cli_stdout.txt").write_text(log.getvalue())
+    for name in SOURCES:
+        check(launches[name] > 0, f"kernel {name} was not launched by the trainer CLIs")
+    rec.update(launches=launches, seconds=time.perf_counter() - t0)
+    emit(rec)
+    return launches
 
 
 def main():
@@ -1130,6 +1540,8 @@ def main():
         serve_phases(smi)
         style_engine_phase(smi)
         train_phase(smi, "bfloat16", steps=3)
+        pretrain_d_phase(smi)
+        train_t_phase(smi, stages=("train",))
         return
     check(len(sys.argv) == 1,
           "usage: chip_smoke.py [--kernels NAME[,NAME...] | --paths]")
@@ -1139,16 +1551,21 @@ def main():
     launches_train = train_phase(smi, "bfloat16", steps=3)
     train_phase(smi, None, steps=2)
     train_f32_vs_cpu_phase()
+    launches_pretrain_d = pretrain_d_phase(smi)
+    launches_t = train_t_phase(smi)
+    train_tiny_vs_cpu_phase()
+    launches_cli = train_cli_phase()
+    paths = {"serve": launches_serve, "style_engine": launches_style_engine,
+             "train_step": launches_train, "pretrain_d_step": launches_pretrain_d,
+             "pretrain_t_step": launches_t["pretrain_t"],
+             "train_t_step": launches_t["train_t"], "train_cli": launches_cli}
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
-         "launches": launches_serve.get(name, 0) + launches_style_engine.get(name, 0)
-         + launches_train.get(name, 0),
-         "launches_serve": launches_serve.get(name, 0),
-         "launches_style_engine": launches_style_engine.get(name, 0),
-         "launches_train_step": launches_train.get(name, 0),
+         "launches": sum(p.get(name, 0) for p in paths.values()),
+         **{f"launches_{path}": p.get(name, 0) for path, p in paths.items()},
          **{k: summary[name][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "backward_max_rel_err")},

@@ -7,7 +7,8 @@ signed pads and 12-tap filters, every up/down pair, rows on and off the
 16-byte vector, more than 65535 planes, both depth-to-space orders, 1-byte
 elements, warps of non-square images onto ragged outputs partly outside the
 image; and
-each autograd Function's backward on the card. The main-path shapes are
+each autograd Function's backward on the card; and the stage-1 and T
+training steps at the --tiny size, card against CPU. The main-path shapes are
 checked by chip_smoke.py. Run on a machine with an H100 (it has no
 JAX, so skip the suite's conftest):
 
@@ -329,3 +330,93 @@ def test_compute_style_card_vs_cpu(dev):
         assert ((card - card_bf16).norm() / card.norm()).item() <= 1e-6
         assert ((card - host).norm() / host.norm()).item() <= 1e-4
     assert kernels.launch_counts()["fused_leaky_relu"] > 0  # the mapping MLP
+
+
+def _uncond_d_cfg():
+    from vtoonify_tpu_torch.models.vtoonify import CondDiscriminatorConfig
+
+    return CondDiscriminatorConfig(size=64, channel_multiplier=1)
+
+
+def _tiny_train_modules(backbone, g):
+    """The trainer's --tiny modules (CPU, float32), noise weights and
+    styled-conv biases randomized so the teachers' images are not blind."""
+    from vtoonify_tpu_torch.models import bisenet, generator, lpips, psp_encoder, vtoonify
+
+    cfg = vtoonify.VToonifyConfig(in_size=32, out_size=128, channel_multiplier=1,
+                                  num_res_layers=2, backbone=backbone)
+    pcfg = psp_encoder.PSPEncoderConfig(n_styles=cfg.n_latent)
+    mods = dict(vt=vtoonify.init_vtoonify(cfg, g), parsing=bisenet.init_bisenet(generator=g),
+                base=generator.init_generator(cfg.generator, g),
+                psp=psp_encoder.init_psp_encoder(pcfg, g), lpips=lpips.init_lpips(g),
+                d=vtoonify.init_cond_discriminator(_uncond_d_cfg(), g))
+    gens = [mods["base"], mods["vt"].generator.generator
+            if backbone == "dualstylegan" else mods["vt"].generator]
+    with torch.no_grad():
+        for gen in gens:
+            for blk in [gen.conv1, *gen.convs]:
+                blk.noise.weight.fill_(0.1)
+                blk.act_bias.normal_(0.0, 0.3, generator=g)
+    return cfg, pcfg, mods
+
+
+def _flat_params(module):
+    return torch.cat([p.detach().float().reshape(-1).cpu() for p in module.parameters()])
+
+
+@pytest.mark.parametrize("which", ["pretrain_d", "pretrain_t", "train_t"])
+def test_train_steps_card_vs_cpu(dev, which):
+    """The stage-1 steps of VToonify-D and VToonify-T and the T stage-2 step
+    at the --tiny configuration, batch 2, float32 with TF32 off, on the card
+    and on the CPU from the same modules and draws: metrics within 2e-3
+    relative, the gradients (Adam's first moment over 1 - beta1) within
+    1e-3 relative L2, Adam's first updates within 2 lr everywhere, and
+    every kernel of the step launched on the card."""
+    import copy
+
+    from vtoonify_tpu_torch.train import steps as S
+
+    g = torch.Generator().manual_seed(8)
+    backbone = "dualstylegan" if which == "pretrain_d" else "toonify"
+    cfg, pcfg, mods_cpu = _tiny_train_modules(backbone, g)
+    directions = torch.randn((4, cfg.n_latent, 512), generator=g) * 0.1
+    style = torch.randn((2, cfg.n_latent, 512), generator=g) * 0.3
+    tcfg = S.TrainDConfig(crop_size=96, lpips_size=64, aug_max_pad=40)
+    if which == "train_t":
+        draws = S.sample_train_t_draws(g, 2, cfg, tcfg, 4)
+    else:
+        draws = S.sample_pretrain_draws(g, 2, cfg, 4)
+    out = {}
+    for where in ("cuda", "cpu"):
+        m = copy.deepcopy(mods_cpu)
+        device = dev if where == "cuda" else "cpu"
+        kernels.reset_launch_counts()
+        if which == "train_t":
+            state = S.init_train_t_state(m["vt"], m["d"], tcfg, device=device)
+            _, frozen = S.split_trainable(m["vt"])
+            metrics = S.train_t_step(state, frozen, m["base"], m["parsing"], m["psp"],
+                                     pcfg, None, m["lpips"], cfg, _uncond_d_cfg(), tcfg,
+                                     directions, 2, 0.3, draws=draws.to(device))
+        else:
+            state = S.init_pretrain_state(m["vt"], device=device)
+            _, frozen = S.split_trainable(m["vt"], pretrain=True)
+            if which == "pretrain_d":
+                metrics = S.pretrain_step(state, frozen, m["parsing"], cfg, directions,
+                                          style, 0.6, draws=draws.to(device))
+            else:
+                metrics = S.pretrain_t_step(state, frozen, m["base"], m["parsing"], cfg,
+                                            directions, 2, draws=draws.to(device))
+        grads = torch.cat([(state.g_opt.state[p]["exp_avg"] / (1 - S.ADAM_BETA1))
+                           .reshape(-1).cpu() for p in state.trainable.parameters()])
+        out[where] = ({k: float(v) for k, v in metrics.items()},
+                      _flat_params(state.trainable), grads, kernels.launch_counts())
+    for k, v in out["cpu"][0].items():
+        assert abs(out["cuda"][0][k] - v) <= 2e-3 * abs(v) + 1e-9, k
+    assert (out["cuda"][1] - out["cpu"][1]).abs().max().item() <= 2 * tcfg.lr + 1e-7
+    g_card, g_cpu = out["cuda"][2], out["cpu"][2]
+    assert ((g_card - g_cpu).norm() / g_cpu.norm()).item() <= 1e-3
+    launched = out["cuda"][3]
+    want = {"modconv3x3", "fused_leaky_relu", "upfirdn2d", "depth_to_space2"}
+    if which == "train_t":
+        want.add("affine_warp")
+    assert all(launched[k] > 0 for k in want), launched

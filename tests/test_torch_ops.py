@@ -494,6 +494,15 @@ def test_port_imports_no_jax():
         "import vtoonify_tpu_torch.pipeline.landmarks\n"
         "import vtoonify_tpu_torch.pipeline.model_api\n"
         "import vtoonify_tpu_torch.utils.checkpoint\n"
+        "import vtoonify_tpu_torch.train.synth\n"
+        "import vtoonify_tpu_torch.train.guards\n"
+        "import vtoonify_tpu_torch.train.logging\n"
+        "import vtoonify_tpu_torch.utils.blend\n"
+        "import vtoonify_tpu_torch.utils.profiling\n"
+        "import vtoonify_tpu_torch.models.lpips\n"
+        "import vtoonify_tpu_torch.convert.torch_export\n"
+        "import vtoonify_tpu_torch.cli.train_d\n"
+        "import vtoonify_tpu_torch.cli.train_t\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'vtoonify_tpu.')))\n"
         "assert not bad, bad\n"

@@ -2,9 +2,9 @@
 
 Mirrors the JAX package's layout (ops/, nn/layers.py, models/, pipeline/,
 train/, convert/). Imports torch, never jax. The hand-written kernels live in
-csrc/ and are bound in ops/kernels.py. Entry points (`ToonifyPipeline`,
-`train.steps.init_train_d_state`) run on the card unless the caller passes
-`device="cpu"`.
+csrc/ and are bound in ops/kernels.py. Entry points (`ToonifyPipeline`, the
+`train.steps.init_*_state` functions, the CLIs) run on the card unless the
+caller passes `device="cpu"` (`--cpu`).
 """
 
 import torch

@@ -1,0 +1,176 @@
+"""What the two trainer CLIs (cli/train_d.py, cli/train_t.py) share: the
+options both take, the start-up (device, precision, the options of the JAX
+trainers that are not ported), the iteration loop with its logging,
+preemption guard and profiling window, and the checkpoint names."""
+
+from __future__ import annotations
+
+import os
+import time
+
+import torch
+
+from vtoonify_tpu_torch import resolve_device
+from vtoonify_tpu_torch.train.guards import (
+    PreemptionGuard,
+    check_finite_metrics,
+    enable_nan_debugging,
+    handle_preemption,
+)
+from vtoonify_tpu_torch.train.logging import MetricsLogger
+from vtoonify_tpu_torch.utils.checkpoint import save_train_state
+from vtoonify_tpu_torch.utils.profiling import StepTrace
+
+TINY = dict(in_size=32, out_size=128, channel_multiplier=1, num_res_layers=2)
+TINY_TCFG = dict(crop_size=96, lpips_size=64, aug_max_pad=40)
+
+
+def add_common_args(p, ref: str):
+    """The options both trainers take (`ref` names the reference script
+    for the help texts)."""
+    p.add_argument("--iter", type=int, default=2000)
+    p.add_argument("--batch", type=int, default=8, help="batch size")
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--start_iter", type=int, default=0)
+    p.add_argument("--save_every", type=int, default=30000)
+    p.add_argument("--save_begin", type=int, default=30000)
+    p.add_argument("--log_every", type=int, default=200)
+    p.add_argument("--adv_loss", type=float, default=0.01)
+    p.add_argument("--grec_loss", type=float, default=0.1)
+    p.add_argument("--perc_loss", type=float, default=0.01)
+    p.add_argument("--tmp_loss", type=float, default=1.0)
+    p.add_argument("--encoder_path", type=str, default=None)
+    p.add_argument("--direction_path", type=str,
+                   default="./checkpoint/directions.npy")
+    p.add_argument("--faceparsing_path", type=str,
+                   default="./checkpoint/faceparsing.pth")
+    p.add_argument("--style_encoder_path", type=str,
+                   default="./checkpoint/encoder.pt")
+    p.add_argument("--vgg_path", type=str, default=None,
+                   help="torchvision vgg16 state_dict for LPIPS")
+    p.add_argument("--lpips_lin_path", type=str, default=None,
+                   help="LPIPS lin weights (else $VTOONIFY_LPIPS_LIN)")
+    p.add_argument("--allow_random_lpips", action="store_true",
+                   help="explicitly allow a randomly-initialized LPIPS net "
+                        "when --vgg_path is absent (tests/smoke only — the "
+                        "perceptual loss is meaningless with random weights)")
+    p.add_argument("--pretrain", action="store_true")
+    p.add_argument("--resume", action="store_true",
+                   help="exact resume from the last full train state "
+                        "(params+EMA+optimizers+step)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel width (not ported: 1 only)")
+    p.add_argument("--multihost", action="store_true", help="not ported")
+    p.add_argument("--coordinator", type=str, default=None, help="not ported")
+    p.add_argument("--num_processes", type=int, default=None, help="not ported")
+    p.add_argument("--process_id", type=int, default=None, help="not ported")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--local_rank", type=int, default=0,
+                   help=f"accepted for reference launch-script compatibility "
+                        f"({ref}); ignored")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="autograd anomaly detection: fail at the first "
+                        "backward op that makes a NaN (slow, debug only)")
+    p.add_argument("--profile", type=int, default=0, metavar="N",
+                   help="trace N steps with torch.profiler (a Chrome trace "
+                        "under log/NAME/trace)")
+    p.add_argument("--tiny", action="store_true",
+                   help="32->128 debug model config (smoke tests only; "
+                        "checkpoints must match)")
+    p.add_argument("--export_pt", action="store_true",
+                   help="also save reference-format torch .pt checkpoints "
+                        "(loadable by the reference style_transfer.py and "
+                        "by the port's load_reference_vtoonify)")
+    p.add_argument("--bf16", action="store_true",
+                   help="run the student/D/LPIPS forwards AND the frozen-"
+                        "teacher data synthesis in bfloat16 (float32 master "
+                        "weights, optimizer state and loss arithmetic)")
+    p.add_argument("--synth_fp32", action="store_true",
+                   help="with --bf16: keep the frozen-teacher data synthesis "
+                        "in float32")
+    p.add_argument("--matmul_precision", type=str, default=None,
+                   choices=["default", "high", "highest"],
+                   help="float32 convs and matmuls on the card: 'highest' "
+                        "turns TF32 off, 'high' on; 'default' is torch's")
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU (default: the card; fails without one)")
+
+
+def start(args) -> torch.device:
+    """Print the options, refuse what is not ported, set the float32
+    precision and NaN debugging; returns the run's device."""
+    if args.encoder_path is None:
+        args.encoder_path = os.path.join("./checkpoint/", args.name,
+                                         "pretrain.ckpt")
+    print("Load options")
+    for k, v in sorted(vars(args).items()):
+        print(f"{k}: {v}")
+    if (args.tp > 1 or args.multihost or args.coordinator is not None
+            or args.num_processes is not None or args.process_id is not None):
+        raise SystemExit("error: --tp > 1, --multihost, --coordinator, "
+                         "--num_processes and --process_id (multi-device "
+                         "training) are not ported yet to vtoonify_tpu_torch "
+                         "(ROADMAP.md queue A item 10); train on one device")
+    device = resolve_device("cpu" if args.cpu else None)
+    if args.matmul_precision is not None:
+        from vtoonify_tpu_torch.cli.style_transfer import set_float32_precision
+
+        set_float32_precision(args.matmul_precision)
+    if args.debug_nans:
+        enable_nan_debugging()
+    os.makedirs(f"checkpoint/{args.name}", exist_ok=True)
+    return device
+
+
+def precision(args) -> dict:
+    """The steps' compute_dtype / synth_dtype from --bf16 / --synth_fp32."""
+    return dict(compute_dtype="bfloat16" if args.bf16 else None,
+                synth_dtype="float32" if args.synth_fp32 else None)
+
+
+def checkpoint_name(args, idx: int, final: str, every: str):
+    """The name of the checkpoint saved after iteration `idx`, or None when
+    none is due: `final` after the last iteration, `every` (formatted with
+    the iteration count) at the save cadence."""
+    n = idx + 1
+    if n == args.iter:
+        return final
+    if n >= args.save_begin and n % args.save_every == 0:
+        return every.format(n)
+    return None
+
+
+def train_loop(args, state, state_path: str, step, save, log_grid=None):
+    """Iterations start_iter .. iter - 1: `step(idx)` runs one and returns
+    (metrics, extra log fields), then a metrics line every log_every // 10
+    iterations (non-finite metrics raise), `log_grid(idx)`, on SIGTERM the
+    full state saved to `state_path` and a clean return, else `save(idx)`;
+    and the --profile window."""
+    log_dir = f"log/{args.name}"
+    mlog = MetricsLogger(log_dir)
+    tracer = StepTrace(os.path.join(log_dir, "trace"), args.start_iter + 1,
+                       args.profile)
+    guard = PreemptionGuard()
+    t0 = time.time()
+    try:
+        for idx in range(args.start_iter, args.iter):
+            if args.profile:
+                tracer.before(idx)
+            metrics, extra = step(idx)
+            if args.profile:
+                tracer.after(idx)
+            if (idx + 1) % max(args.log_every // 10, 1) == 0:
+                check_finite_metrics(metrics, idx)
+                mlog.log(idx, metrics, **extra)
+                m = {k: f"{float(v):.4f}" for k, v in metrics.items()}
+                print(f"iter {idx}: {m} ({(time.time() - t0) / (idx - args.start_iter + 1):.2f}"
+                      " s/it)", flush=True)
+            if log_grid is not None:
+                log_grid(idx)
+            if handle_preemption(guard, lambda: save_train_state(state_path, state),
+                                 idx + 1):
+                return
+            save(idx)
+    finally:
+        tracer.close()
+        guard.uninstall()

@@ -18,9 +18,10 @@ per-op dtype choices differ from the JAX casts and from the kernels'
 same-dtype operand rule. `remat` maps to `torch.utils.checkpoint(...,
 use_reentrant=False)` around the G forwards and/or LPIPS.
 
-Randomness: every draw of a step is gathered in a `TrainDDraws`
-(`sample_train_d_draws` makes one from a `torch.Generator`), so a step can be
-replayed with given draws (torch's streams cannot match `jax.random`).
+Randomness: every draw of a step is gathered in a draws object
+(`PretrainDraws`, `TrainDDraws`, `TrainTDraws`; the `sample_*_draws`
+functions make one from a `torch.Generator`), so a step can be replayed with
+given draws (torch's streams cannot match `jax.random`).
 """
 
 from __future__ import annotations
@@ -160,6 +161,29 @@ def _adam(params, lr):
                             eps=ADAM_EPS)
 
 
+def _trainable(vt, pretrain: bool, device):
+    """Moves `vt` to `device` (None: the card; raises without one) and marks
+    its trainable children; returns them as a ModuleDict, their EMA copy
+    (frozen) and the device."""
+    device = resolve_device(device)
+    vt.to(device)
+    trainable = nn.ModuleDict(split_trainable(vt, pretrain)[0])
+    set_trainable(trainable)
+    return trainable, set_trainable(copy.deepcopy(trainable), False), device
+
+
+def _device_of(state) -> torch.device:
+    return next(state.trainable.parameters()).device
+
+
+@dataclass
+class PretrainState:
+    trainable: nn.ModuleDict   # the encoder (float32 masters)
+    ema: nn.ModuleDict         # its EMA copy (frozen)
+    g_opt: torch.optim.Adam
+    step: int = 0
+
+
 @dataclass
 class TrainDState:
     trainable: nn.ModuleDict   # encoder, fusion_out, fusion_skip (f32 masters)
@@ -172,8 +196,38 @@ class TrainDState:
 
 
 @dataclass
-class TrainDDraws:
-    """Every random value of one stage-2 step."""
+class TrainTState:
+    trainable: nn.ModuleDict   # encoder, fusion_out, fusion_skip (f32 masters)
+    ema: nn.ModuleDict
+    d: nn.Module               # the unconditional discriminator (f32 masters)
+    g_opt: torch.optim.Adam
+    d_opt: torch.optim.Adam
+    step: int = 0
+
+
+class _Draws:
+    def to(self, device):
+        def mv(v):
+            return [t.to(device) for t in v] if isinstance(v, list) else (
+                v.to(device) if torch.is_tensor(v) else v)
+        return type(self)(**{k: mv(v) for k, v in vars(self).items()})
+
+
+@dataclass
+class PretrainDraws(_Draws):
+    """Every random value of one stage-1 step (D or T)."""
+    z: torch.Tensor            # (B, style_dim) content latents
+    dir_idx: torch.Tensor      # (B,) editing-direction indices
+    noise_content: list        # num_layers (B, 1, s, s) noise images, content
+    noise_feat: list           # ... the teacher's feature pass
+
+
+PretrainTDraws = PretrainDraws  # T's stage 1 draws the same values
+
+
+@dataclass
+class TrainDDraws(_Draws):
+    """Every random value of one VToonify-D stage-2 step."""
     z: torch.Tensor            # (B, style_dim) content latents
     dir_idx: torch.Tensor      # (B,) editing-direction indices
     noise_xc: list             # num_layers (B, 1, s, s) noise images, content
@@ -183,35 +237,79 @@ class TrainDDraws:
     off_w: int                 # temporal-crop offsets
     off_h: int
 
-    def to(self, device) -> "TrainDDraws":
-        def mv(v):
-            return [t.to(device) for t in v] if isinstance(v, list) else (
-                v.to(device) if torch.is_tensor(v) else v)
-        return TrainDDraws(**{k: mv(v) for k, v in vars(self).items()})
+
+@dataclass
+class TrainTDraws(_Draws):
+    """Every random value of one VToonify-T stage-2 step."""
+    z: torch.Tensor
+    dir_idx: torch.Tensor
+    noise_xc: list             # content (base G0)
+    noise_xs: list             # stylized target (blended G1)
+    affine: torch.Tensor
+    off_w: int
+    off_h: int
+
+
+def _draw_noise(generator, cfg: VToonifyConfig, batch, device):
+    return [n.to(device) for n in G.make_noise(None, cfg.generator, generator,
+                                                batch=batch)]
+
+
+def _draw_content(generator, batch, cfg: VToonifyConfig, n_directions, device):
+    gdev = generator.device
+    z = torch.randn((batch, cfg.generator.style_dim), generator=generator,
+                    device=gdev)
+    dir_idx = torch.randint(0, n_directions, (batch,), generator=generator,
+                            device=gdev)
+    return z.to(device), dir_idx.to(device)
+
+
+def _draw_augment(generator, batch, cfg: VToonifyConfig, tcfg, device):
+    """(inverse augment affine, off_w, off_h)."""
+    affine = torch.linalg.inv(sample_affine(generator, tcfg.aug_p, batch,
+                                            cfg.out_size, cfg.out_size))
+    off = torch.randint(0, cfg.out_size - tcfg.crop_size + 1, (2,),
+                        generator=generator, device=generator.device)
+    return affine.to(device), int(off[0]), int(off[1])
+
+
+def sample_pretrain_draws(generator: torch.Generator, batch: int,
+                          cfg: VToonifyConfig, n_directions: int,
+                          device=None) -> PretrainDraws:
+    """One stage-1 step's draws from `generator` (made on its device,
+    returned on `device`)."""
+    z, dir_idx = _draw_content(generator, batch, cfg, n_directions, device)
+    return PretrainDraws(z, dir_idx, _draw_noise(generator, cfg, batch, device),
+                         _draw_noise(generator, cfg, batch, device))
 
 
 def sample_train_d_draws(generator: torch.Generator, batch: int,
                          cfg: VToonifyConfig, tcfg: TrainDConfig,
                          n_directions: int, device=None) -> TrainDDraws:
-    """One step's draws from `generator` (made on its device, returned on
-    `device`)."""
-    gdev = generator.device
-    gcfg = cfg.generator
-    max_off = cfg.out_size - tcfg.crop_size
+    """One stage-2 step's draws from `generator` (made on its device,
+    returned on `device`)."""
+    z, dir_idx = _draw_content(generator, batch, cfg, n_directions, device)
+    noise = [_draw_noise(generator, cfg, batch, device) for _ in range(3)]
+    return TrainDDraws(z, dir_idx, *noise,
+                       *_draw_augment(generator, batch, cfg, tcfg, device))
 
-    def noise():
-        return [n.to(device) for n in G.make_noise(None, gcfg, generator,
-                                                    batch=batch)]
 
-    z = torch.randn((batch, gcfg.style_dim), generator=generator, device=gdev)
-    dir_idx = torch.randint(0, n_directions, (batch,), generator=generator,
-                            device=gdev)
-    noise_xc, noise_xs, noise_jitter = noise(), noise(), noise()
-    affine = torch.linalg.inv(sample_affine(generator, tcfg.aug_p, batch,
-                                            cfg.out_size, cfg.out_size))
-    off = torch.randint(0, max_off + 1, (2,), generator=generator, device=gdev)
-    return TrainDDraws(z.to(device), dir_idx.to(device), noise_xc, noise_xs,
-                       noise_jitter, affine.to(device), int(off[0]), int(off[1]))
+def sample_train_t_draws(generator: torch.Generator, batch: int,
+                         cfg: VToonifyConfig, tcfg: TrainDConfig,
+                         n_directions: int, device=None) -> TrainTDraws:
+    """One T stage-2 step's draws from `generator`."""
+    z, dir_idx = _draw_content(generator, batch, cfg, n_directions, device)
+    noise = [_draw_noise(generator, cfg, batch, device) for _ in range(2)]
+    return TrainTDraws(z, dir_idx, *noise,
+                       *_draw_augment(generator, batch, cfg, tcfg, device))
+
+
+def init_pretrain_state(vt, lr: float = 1e-4, device=None) -> PretrainState:
+    """Moves `vt` to `device` (None: the card; raises without one), marks
+    its encoder trainable and builds the encoder's EMA copy and Adam."""
+    trainable, ema, _ = _trainable(vt, True, device)
+    return PretrainState(trainable=trainable, ema=ema,
+                         g_opt=_adam(trainable.parameters(), lr))
 
 
 def init_train_d_state(vt, d, batch: int, cfg: VToonifyConfig,
@@ -219,22 +317,24 @@ def init_train_d_state(vt, d, batch: int, cfg: VToonifyConfig,
     """Moves `vt` and `d` to `device` (None: the card; raises without one),
     marks the student's encoder / fusion_out / fusion_skip and all of `d`
     trainable, and builds the EMA copies, the two Adams and the carry."""
-    device = resolve_device(device)
-    vt.to(device)
-    d.to(device)
-    trainable, _ = split_trainable(vt)
-    for m in trainable.values():
-        set_trainable(m)
-    set_trainable(d)
-    trainable = nn.ModuleDict(trainable)
-    ema = set_trainable(copy.deepcopy(trainable), False)
+    trainable, ema, dev = _trainable(vt, False, device)
+    set_trainable(d.to(dev))
     return TrainDState(
         trainable=trainable, ema=ema, d=d,
         g_opt=_adam(trainable.parameters(), tcfg.lr),
         d_opt=_adam(d.parameters(), tcfg.lr),
         wc_prev=torch.zeros((batch, cfg.n_latent, cfg.style_channels),
-                            device=device),
+                            device=dev),
         step=0)
+
+
+def init_train_t_state(vt, d, tcfg: TrainDConfig, device=None) -> TrainTState:
+    """`init_train_d_state` for VToonify-T: no color-jitter carry."""
+    trainable, ema, dev = _trainable(vt, False, device)
+    set_trainable(d.to(dev))
+    return TrainTState(trainable=trainable, ema=ema, d=d,
+                       g_opt=_adam(trainable.parameters(), tcfg.lr),
+                       d_opt=_adam(d.parameters(), tcfg.lr))
 
 
 def _to(module, device):
@@ -253,52 +353,109 @@ def _apply_step(opt, params, grads):
     opt.zero_grad(set_to_none=True)
 
 
+def _synthesize(teacher: _Bound, sdt, fn) -> dict:
+    """fn(teacher) without gradients, on the teacher's parameters cast to
+    `sdt` (None: float32); the outputs come back in float32."""
+    with torch.no_grad():
+        cast = None if sdt is None else _cast_state(teacher, sdt, grad=False)
+        out = _call(teacher, cast, fn)
+    return {k: v.float() for k, v in out.items()}
+
+
 # ---------------------------------------------------------------------------
-# the step
+# stage 1: encoder distillation
 
 
-def train_d_step(state: TrainDState, frozen: dict, parsing, psp, psp_cfg,
-                 latent_avg, lpips, cfg: VToonifyConfig,
-                 dcfg: CondDiscriminatorConfig, tcfg: TrainDConfig,
-                 directions, style, style_ind, d_s, weights, tmp_ramp,
-                 color_fuse_t, use_color_jitter: bool, xl_override=None,
-                 draws: Optional[TrainDDraws] = None,
-                 generator: Optional[torch.Generator] = None):
-    """One full VToonify-D iteration (train_vtoonify_d.py:212-342). `frozen`
-    is split_trainable's second dict ({'generator', 'res'}); `style`
-    (B, n_latent, 512) the selected exstyles, `style_ind` (B,) their
-    indices, `weights` the n_latent interp weights, `tmp_ramp` and
-    `color_fuse_t` the schedule values, `use_color_jitter` a Python bool.
-    Draws come from `draws`, else from `generator`. Mutates `state`;
-    returns the metrics {g, gr, gf, tp, msk, d} as float32 0-d tensors."""
-    dev = state.wc_prev.device
-    for m in (*frozen.values(), parsing, psp, lpips):
+def _feature_step(state, frozen: dict, cfg: VToonifyConfig, data: dict, style,
+                  d_s, compute_dtype) -> dict:
+    """The stage-1 update shared by D and T: the student's encoder
+    features (feat, skip) regressed onto the teacher's (MSE), Adam on the
+    encoder, EMA."""
+    cdt = _mp_cast(compute_dtype)
+    student = _Bound(**frozen, **dict(state.trainable.items()))
+    cast = None
+    if cdt is not None:
+        cast = {**_cast_state(_Bound(**frozen), cdt, grad=False),
+                **_cast_state(_Bound(**state.trainable), cdt, grad=True)}
+    inp_c, style_c, d_s_c = (_cast(t, cdt) for t in (data["real_input"], style, d_s))
+    feat, skip = _call(student, cast, lambda m: vtoonify_apply(
+        m, cfg, inp_c, style_c, d_s_c, return_feat=True))
+    loss = (mse_loss(_up(feat), data["real_feat"])
+            + mse_loss(_up(skip), data["real_skip"]))
+    params = list(state.trainable.parameters())
+    _apply_step(state.g_opt, params, torch.autograd.grad(loss, params))
+    ema_update(state.ema, state.trainable)
+    state.step += 1
+    return {"emse": loss.detach()}
+
+
+def pretrain_step(state: PretrainState, frozen: dict, parsing,
+                  cfg: VToonifyConfig, directions, style, d_s,
+                  compute_dtype: Optional[str] = None,
+                  synth_dtype: Optional[str] = None,
+                  draws: Optional[PretrainDraws] = None,
+                  generator: Optional[torch.Generator] = None):
+    """One VToonify-D stage-1 iteration (train_vtoonify_d.py:99-151).
+    `frozen` is split_trainable(vt, pretrain=True)'s second dict, `style`
+    (B, n_latent, 512) the batch's w'' codes, `d_s` the degree. Draws come
+    from `draws`, else from `generator`. Mutates `state`; returns {emse}."""
+    dev = _device_of(state)
+    for m in (*frozen.values(), parsing):
         _to(m, dev)
-    directions, style, style_ind = (t.to(dev) for t in (directions, style, style_ind))
-    latent_avg = None if latent_avg is None else latent_avg.to(dev)
-    b = style.shape[0]
+    directions, style = directions.to(dev), style.to(dev)
     if draws is None:
-        draws = sample_train_d_draws(generator, b, cfg, tcfg,
-                                     directions.shape[0], device=dev)
+        draws = sample_pretrain_draws(generator, style.shape[0], cfg,
+                                      directions.shape[0], device=dev)
+    sdt = _synth_cast(synth_dtype, compute_dtype)
+    teacher = _Bound(vt=_Bound(**frozen, **dict(state.trainable.items())),
+                     parsing=parsing)
+    data = _synthesize(teacher, sdt, lambda m: synth.synth_pretrain_batch(
+        draws, m.vt, cfg, m.parsing, _cast(directions, sdt), _cast(style, sdt),
+        _cast(d_s, sdt)))
+    return _feature_step(state, frozen, cfg, data, style, d_s, compute_dtype)
+
+
+def pretrain_t_step(state: PretrainState, frozen: dict, base, parsing,
+                    cfg: VToonifyConfig, directions, batch: int,
+                    compute_dtype: Optional[str] = None,
+                    synth_dtype: Optional[str] = None,
+                    draws: Optional[PretrainDraws] = None,
+                    generator: Optional[torch.Generator] = None):
+    """One VToonify-T stage-1 iteration (train_vtoonify_t.py:99-135):
+    `frozen` holds the blended G1 as `generator`, `base` is the un-blended
+    StyleGAN G0 the content comes from."""
+    dev = _device_of(state)
+    for m in (*frozen.values(), base, parsing):
+        _to(m, dev)
+    directions = directions.to(dev)
+    if draws is None:
+        draws = sample_pretrain_draws(generator, batch, cfg,
+                                      directions.shape[0], device=dev)
+    sdt = _synth_cast(synth_dtype, compute_dtype)
+    teacher = _Bound(vt=_Bound(**frozen, **dict(state.trainable.items())),
+                     base=base, parsing=parsing)
+    data = _synthesize(teacher, sdt, lambda m: synth.synth_pretrain_t_batch(
+        draws, m.base, cfg.generator, m.vt, cfg, m.parsing,
+        _cast(directions, sdt)))
+    return _feature_step(state, frozen, cfg, data, None, None, compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# stage 2: the GAN step
+
+
+def _gan_step(state, frozen: dict, lpips, cfg: VToonifyConfig,
+              dcfg: CondDiscriminatorConfig, tcfg: TrainDConfig, batch_data: dict,
+              draws, d_s, d_cond: tuple, tmp_ramp) -> dict:
+    """The D step, then the G step, then the EMA of one stage-2 iteration,
+    shared by D and T. `d_s` is the student's degree (None for T), `d_cond`
+    the conditional D's (degree_label, style_ind) (empty for T's
+    unconditional D). The D backbone adds the mask loss."""
+    with_mask = cfg.backbone == "dualstylegan"
     trainable = dict(state.trainable.items())
     tr_params = list(state.trainable.parameters())
     d_params = list(state.d.parameters())
-
-    # ---- data synthesis: the frozen teachers, no gradient -------------------
-    sdt = _synth_cast(tcfg.synth_dtype, tcfg.compute_dtype)
-    teacher = _Bound(vt=_Bound(**frozen, **trainable), parsing=parsing, psp=psp)
-    with torch.no_grad():
-        cast = None if sdt is None else _cast_state(teacher, sdt, grad=False)
-        batch_data = _call(teacher, cast, lambda m: synth.synth_train_batch(
-            draws, m.vt, cfg, m.parsing, m.psp, psp_cfg, _cast(latent_avg, sdt),
-            _cast(directions, sdt), _cast(style, sdt), _cast(d_s, sdt),
-            [_cast(w, sdt) for w in weights], _cast(state.wc_prev, sdt),
-            _cast(color_fuse_t, sdt), use_color_jitter,
-            xl_override=_cast(xl_override, sdt), aug_p=tcfg.aug_p,
-            aug_max_pad=tcfg.aug_max_pad))
-    batch_data = {k: v.float() for k, v in batch_data.items()}
     xl = batch_data["xl"]
-    degree_label = torch.zeros((b, 1), device=dev) + d_s
     pool_to_256 = max(1, cfg.out_size // dcfg.size)
 
     cdt = _mp_cast(tcfg.compute_dtype)
@@ -321,7 +478,7 @@ def train_d_step(state: TrainDState, frozen: dict, parsing, psp, psp_cfg,
     def d_pred(m, img):
         return _up(cond_discriminator_apply(
             m.d, dcfg, _cast(avg_pool(img, pool_to_256), cdt),
-            _cast(degree_label, cdt), style_ind))
+            *(_cast(c, cdt) for c in d_cond)))
 
     cast = None if cdt is None else _cast_state(disc, cdt, grad=True)
     d_loss = _call(disc, cast, lambda m: d_logistic_loss(
@@ -354,16 +511,20 @@ def train_d_step(state: TrainDState, frozen: dict, parsing, psp, psp_cfg,
         fn = lambda a, c: _call(lp_bound, lp_cast, lpips_fwd, a, c)  # noqa: E731
         return checkpoint(fn, x0, x1, use_reentrant=False) if remat_lpips else fn(x0, x1)
 
-    fake, m_Es = run_vt(inp_c, True)
+    if with_mask:
+        fake, m_Es = run_vt(inp_c, True)
+        m_Es = [_up(m) for m in m_Es]
+    else:
+        fake = run_vt(inp_c)
     fake = _up(fake)
-    m_Es = [_up(m) for m in m_Es]
     fake_pred = _call(disc, d_frozen, d_pred, fake)
     g_adv = g_nonsaturating_loss(fake_pred) * tcfg.adv_loss
     g_rec = mse_loss(fake, real_output) * tcfg.grec_loss
     g_feat = _up(run_lpips(_cast(avg_pool(fake, pool_to_512), cdt),
                            _cast(avg_pool(real_output, pool_to_512), cdt))
                  ).sum() * tcfg.perc_loss
-    g_msk = mask_loss(m_Es, d_s, tcfg.msk_loss)
+    if with_mask:
+        g_msk = mask_loss(m_Es, d_s, tcfg.msk_loss)
 
     # temporal crop consistency (train_vtoonify_d.py:326-334); the reference
     # indexes H with `w` and W with `h` (square crop: only the pairing
@@ -375,13 +536,103 @@ def train_d_step(state: TrainDState, frozen: dict, parsing, psp, psp_cfg,
     crop_fake = fake[:, :, off_w:off_w + cs, off_h:off_h + cs]
     fake_crop = _up(run_vt(_cast(crop_input, cdt)))
     g_tmp = (fake_crop - crop_fake).square().mean() * tmp_ramp * tcfg.tmp_loss
-    total = g_adv + g_rec + g_feat + g_tmp + g_msk
+    metrics = {"g": g_adv, "gr": g_rec, "gf": g_feat, "tp": g_tmp}
+    total = g_adv + g_rec + g_feat + g_tmp
+    if with_mask:
+        metrics["msk"] = g_msk
+        total = total + g_msk
     _apply_step(state.g_opt, tr_params, torch.autograd.grad(total, tr_params))
     ema_update(state.ema, state.trainable)
-
-    state.wc_prev = batch_data["wc"]
     state.step += 1
-    metrics = {"g": g_adv, "gr": g_rec, "gf": g_feat, "tp": g_tmp,
-               "msk": g_msk, "d": d_loss}
+    metrics["d"] = d_loss
+    dev = real_output.device
     return {k: torch.as_tensor(v, dtype=torch.float32, device=dev).detach()
             for k, v in metrics.items()}
+
+
+def train_d_step(state: TrainDState, frozen: dict, parsing, psp, psp_cfg,
+                 latent_avg, lpips, cfg: VToonifyConfig,
+                 dcfg: CondDiscriminatorConfig, tcfg: TrainDConfig,
+                 directions, style, style_ind, d_s, weights, tmp_ramp,
+                 color_fuse_t, use_color_jitter: bool, xl_override=None,
+                 draws: Optional[TrainDDraws] = None,
+                 generator: Optional[torch.Generator] = None):
+    """One full VToonify-D iteration (train_vtoonify_d.py:212-342). `frozen`
+    is split_trainable's second dict ({'generator', 'res'}); `style`
+    (B, n_latent, 512) the selected exstyles, `style_ind` (B,) their
+    indices, `weights` the n_latent interp weights, `tmp_ramp` and
+    `color_fuse_t` the schedule values, `use_color_jitter` a Python bool.
+    Draws come from `draws`, else from `generator`. Mutates `state`;
+    returns the metrics {g, gr, gf, tp, msk, d} as float32 0-d tensors."""
+    dev = _device_of(state)
+    for m in (*frozen.values(), parsing, psp, lpips):
+        _to(m, dev)
+    directions, style, style_ind = (t.to(dev) for t in (directions, style, style_ind))
+    latent_avg = None if latent_avg is None else latent_avg.to(dev)
+    b = style.shape[0]
+    if draws is None:
+        draws = sample_train_d_draws(generator, b, cfg, tcfg,
+                                     directions.shape[0], device=dev)
+
+    # ---- data synthesis: the frozen teachers, no gradient -------------------
+    sdt = _synth_cast(tcfg.synth_dtype, tcfg.compute_dtype)
+    teacher = _Bound(vt=_Bound(**frozen, **dict(state.trainable.items())),
+                     parsing=parsing, psp=psp)
+    batch_data = _synthesize(teacher, sdt, lambda m: synth.synth_train_batch(
+        draws, m.vt, cfg, m.parsing, m.psp, psp_cfg, _cast(latent_avg, sdt),
+        _cast(directions, sdt), _cast(style, sdt), _cast(d_s, sdt),
+        [_cast(w, sdt) for w in weights], _cast(state.wc_prev, sdt),
+        _cast(color_fuse_t, sdt), use_color_jitter,
+        xl_override=_cast(xl_override, sdt), aug_p=tcfg.aug_p,
+        aug_max_pad=tcfg.aug_max_pad))
+    degree_label = torch.zeros((b, 1), device=dev) + d_s
+    metrics = _gan_step(state, frozen, lpips, cfg, dcfg, tcfg, batch_data, draws,
+                        d_s, (degree_label, style_ind), tmp_ramp)
+    state.wc_prev = batch_data["wc"]
+    return metrics
+
+
+def train_t_step(state: TrainTState, frozen: dict, base, parsing, psp, psp_cfg,
+                 latent_avg, lpips, cfg: VToonifyConfig,
+                 dcfg: CondDiscriminatorConfig, tcfg: TrainDConfig, directions,
+                 batch: int, tmp_ramp, draws: Optional[TrainTDraws] = None,
+                 generator: Optional[torch.Generator] = None):
+    """One full VToonify-T iteration (train_vtoonify_t.py:192-276): no style
+    degree, an unconditional D (`dcfg.use_condition` False), no mask loss,
+    no color-jitter carry. `frozen` holds the blended G1 as `generator`,
+    `base` the un-blended G0. Mutates `state`; returns {g, gr, gf, tp, d}."""
+    dev = _device_of(state)
+    for m in (*frozen.values(), base, parsing, psp, lpips):
+        _to(m, dev)
+    directions = directions.to(dev)
+    latent_avg = None if latent_avg is None else latent_avg.to(dev)
+    if draws is None:
+        draws = sample_train_t_draws(generator, batch, cfg, tcfg,
+                                     directions.shape[0], device=dev)
+    sdt = _synth_cast(tcfg.synth_dtype, tcfg.compute_dtype)
+    teacher = _Bound(vt=_Bound(**frozen, **dict(state.trainable.items())),
+                     base=base, parsing=parsing, psp=psp)
+    batch_data = _synthesize(teacher, sdt, lambda m: synth.synth_train_t_batch(
+        draws, m.base, cfg.generator, m.vt, cfg, m.parsing, m.psp, psp_cfg,
+        _cast(latent_avg, sdt), _cast(directions, sdt), aug_p=tcfg.aug_p,
+        aug_max_pad=tcfg.aug_max_pad))
+    return _gan_step(state, frozen, lpips, cfg, dcfg, tcfg, batch_data, draws,
+                     None, (), tmp_ramp)
+
+
+# ---------------------------------------------------------------------------
+# the trainers' fusion init
+
+
+@torch.no_grad()
+def fusion_identity_init(vt) -> None:
+    """The stage-2 start (train_vtoonify_d.py:433-438, train_vtoonify_t.py:
+    362-368): every fusion conv's weight scaled by 0.01, plus the identity
+    at the centre tap from input channel i < c to output channel i (the
+    f_G / skip operand, the first c input channels). D's fusion_out holds
+    its conv in `.conv`; T's are plain convs."""
+    for m in (*vt.fusion_out, *vt.fusion_skip):
+        w = (m.conv if hasattr(m, "conv") else m).weight  # (O, I, 3, 3)
+        c = w.shape[0]
+        w.mul_(0.01)
+        w[:, :c, 1, 1] += torch.eye(c, dtype=w.dtype, device=w.device)

@@ -2,7 +2,9 @@
 vtoonify_tpu/utils/checkpoint.py: `infer_vtoonify_config`,
 `load_reference_vtoonify`, `load_reference_dualstylegan`,
 `load_reference_stylegan`, `load_reference_faceparsing`,
-`load_reference_psp`, `load_exstyle_bank`, `load_directions`).
+`load_reference_psp`, `load_exstyle_bank`, `load_directions`,
+`save_train_state` / `load_train_state`, and the trainers' g_ema files in
+place of its Orbax `save_pytree` / `load_pytree`).
 
 Each loader reads a released PyTorch artifact (vtoonify_*.pt,
 generator.pt, encoder.pt, faceparsing.pth, exstyle_code.npy,
@@ -10,15 +12,22 @@ directions.npy), maps its keys with `convert/torch_import.py` and loads the
 result strictly (`convert/from_jax.py::load_jax_params`: every parameter
 and buffer set, every converted leaf used) into a module built on the CPU.
 Move it to the card with `.to("cuda")` or through `ToonifyPipeline`.
-The JAX package's Orbax train-state save/load is not here.
+
+The trainers' own files are `torch.save` dicts of tensors, numbers and
+state dicts, read back with `torch.load(weights_only=True)`: the full train
+state (`save_train_state`: trainable modules, EMA, D, both Adams, the
+color-jitter carry, the step), so `--resume` continues exactly, and the EMA
+weights (`save_g_ema`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import re
 
 import numpy as np
 import torch
+from torch import nn
 
 from vtoonify_tpu_torch.convert import torch_import as TI
 from vtoonify_tpu_torch.convert.from_jax import load_jax_params
@@ -142,3 +151,48 @@ def load_exstyle_bank(path: str):
 
 def load_directions(path: str):
     return np.asarray(np.load(path))
+
+
+# ---------------------------------------------------------------------------
+# the trainers' own files
+
+
+def save_train_state(path: str, state) -> None:
+    """Persist a PretrainState / TrainDState / TrainTState exactly: module
+    and optimizer state dicts, tensors and the step."""
+    out = {"kind": type(state).__name__}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        out[f.name] = (v.state_dict() if isinstance(v, (nn.Module, torch.optim.Optimizer))
+                       else v)
+    torch.save(out, path)
+
+
+def load_train_state(path: str, template, device=None):
+    """Load a saved state into `template` (the same kind of state, from the
+    same init) in place and return it. Tensors are mapped onto `device`
+    (None: the device of the template's trainable parameters)."""
+    if device is None:
+        device = next(template.trainable.parameters()).device
+    saved = torch.load(path, map_location=device, weights_only=True)
+    if saved.get("kind") != type(template).__name__:
+        raise ValueError(f"{path} holds a {saved.get('kind')}, not a "
+                         f"{type(template).__name__}")
+    for f in dataclasses.fields(template):
+        v = getattr(template, f.name)
+        if isinstance(v, (nn.Module, torch.optim.Optimizer)):
+            v.load_state_dict(saved[f.name])
+        else:
+            setattr(template, f.name, saved[f.name])
+    return template
+
+
+def save_g_ema(path: str, modules: dict) -> None:
+    """{'g_ema': {name: state_dict}} of the EMA modules (the trainers'
+    `pretrain.ckpt` and `vtoonify*.ckpt`)."""
+    torch.save({"g_ema": {k: m.state_dict() for k, m in modules.items()}}, path)
+
+
+def load_g_ema(path: str) -> dict:
+    """{name: state_dict} of a `save_g_ema` file, on the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True)["g_ema"]
