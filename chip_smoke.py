@@ -3,8 +3,11 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels upfirdn2d,depth_to_space2   # those alone
     python3 chip_smoke.py --kernels fused_leaky_relu,affine_warp
-    python3 chip_smoke.py --paths   # serving, style + engine, bf16 training
+    python3 chip_smoke.py --paths   # serving, style + engine, pipeline
+                                    # options, the HTTP server, bf16 training
                                     # (D stage 2, D stage 1, T stage 2)
+    python3 chip_smoke.py --apps    # pipeline options, the HTTP server,
+                                    # smoothing and the release gate alone
 
 Builds the port's five hand-written kernels from vtoonify_tpu_torch/csrc
 with nvcc (sm_90a, one nvcc per source, in parallel), checks each against its
@@ -24,6 +27,25 @@ with random weights from a seeded torch.Generator:
   batch 16, held to process_batch on the same batches and timed beside it,
   with its stage breakdown (decode and encode are not part of it: frames
   come from memory and go to memory);
+* pipeline_options: packed_output (its host finish and the packed video
+  writer) bit-equal to the unpacked pipeline at batch 16, size_bucket and
+  bucket_margin on the card against the CPU in float32, batch-16 fps
+  packed and unpacked in turns, and the native host frame functions timed
+  against their numpy versions;
+* serve_http: the HTTP server (cli/serve.py, its pool of worker threads)
+  over Model on reference-format random checkpoints at the flagship widths:
+  its routes and error codes, and a synthetic 1024 px portrait POSTed 9
+  times, each body byte-equal to cv2.imencode of Model.image_toonify; what
+  a request pays on a thread new to the model, profiled;
+* smooth_parsing: the parsing-map smoother (RAFT at the raft-things widths,
+  BiSeNet, float32) one window card vs CPU, all-pairs vs alt (TF32 off),
+  timed over 16-frame videos at 256 and 512 px with both in its default
+  TF32 and held to the CPU's float32 on one frame, then its CLI, whose maps
+  feed the style-transfer CLI, held byte for byte to
+  process_batch_with_parsing fed the same maps;
+* release_gate: the release gate (cli/validate_release.py) at the --tiny
+  widths on the card against goldens that the style-transfer CLI made on
+  the CPU, a perturbed golden refused, and the inference playground;
 * train: the flagship VToonify-D stage-2 training step (train_d_step:
   teacher synthesis with the augment, D step, G step with LPIPS and the
   temporal crop, EMA) at batch 2 in bfloat16 and float32, timed and
@@ -50,9 +72,12 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import gc
 import json
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -89,6 +114,31 @@ STYLE_REL_L2 = 1e-4
 # but cuDNN may pick another algorithm for the ragged last batch
 ENGINE_MAX_LSB = 1
 ENGINE_FRAMES, ENGINE_TIMED_FRAMES, ENGINE_BATCH, ENGINE_PX = 40, 160, 16, 256
+
+# pipeline_options: batch-16 packed/unpacked at the 256 px serving crop, the
+# packed file writer over 8 frames, and size bucketing of a 248 x 264 crop
+OPTIONS_BATCH, OPTIONS_REPS, WRITER_FRAMES = 16, 3, 8
+BUCKET_CROP, BUCKET, BUCKET_MARGIN = (248, 264), 64, 32
+# serve_http: a synthetic 1024 px portrait upload (a 256 px crop, 1024 px
+# out) to the style arcane1-d, warmed once and timed over 8 requests
+PORTRAIT_PX, HTTP_STYLE, HTTP_TIMED = 1024, "arcane1-d", 8
+# smooth_parsing: the reference's window 5 and 20 RAFT iterations; one
+# window of 64 px frames card vs CPU, 16-frame videos timed at 256 and 512
+# px; the CLI over 8 frames of 256 px. Card vs CPU and alt vs all-pairs on
+# the smoothed maps: relative L2 within 1e-3 (float32 sums in another order
+# through 20 GRU steps, and a validity mask binarized at 0.9999 that a
+# rounding can flip at the border)
+SMOOTH_WINDOW, SMOOTH_ITERS, SMOOTH_FRAMES = 5, 20, 16
+SMOOTH_GATE_PX, SMOOTH_PX, CLI_PX, CLI_FRAMES = 64, (256, 512), 256, 8
+SMOOTH_REL_L2 = 1e-3
+# the timed 256 px maps in TF32 (the smoother's default) against the CPU's
+# float32 map of one frame of the same video: relative L2 within 2e-3, 5x
+# the 4.0e-4 that both corr impls read on an H100 (TF32 rounds each conv's
+# and matmul's inputs to 10 mantissa bits, through 20 GRU steps)
+SMOOTH_TF32_FRAME, SMOOTH_TF32_REL_L2 = 8, 2e-3
+# release_gate: two release cases (D and T) at the trainer's --tiny widths
+GATE_CASES = ["077436_vtoonify_d", "038648_vtoonify_t"]
+TINY_VT = dict(in_size=32, out_size=128, channel_multiplier=1, num_res_layers=2)
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM (data sheet)
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
@@ -884,6 +934,822 @@ def style_engine_phase(smi):
 
 
 # ---------------------------------------------------------------------------
+# inference apps: pipeline options, the HTTP server, parsing-map smoothing
+# and the release gate
+
+
+def synthetic_frames(seed, n, px, step=(1, 2)):
+    """n seeded (px, px, 3) uint8 frames of one smooth random image that
+    moves `step` (rows, columns) pixels a frame, with pixel noise: something
+    for RAFT to follow and for the face crop to cut."""
+    import cv2
+
+    rng = np.random.RandomState(seed)
+    side = px + max(step) * n
+    base = cv2.resize(rng.randint(0, 256, (24, 24, 3)).astype(np.uint8), (side, side),
+                      interpolation=cv2.INTER_LINEAR)
+    out = []
+    for i in range(n):
+        y, x = step[0] * i, step[1] * i
+        noise = rng.randint(-12, 13, (px, px, 3))
+        out.append(np.clip(base[y:y + px, x:x + px].astype(np.int16) + noise, 0, 255)
+                   .astype(np.uint8))
+    return np.stack(out)
+
+
+def portrait_landmarks(px=PORTRAIT_PX):
+    """68 landmarks for a synthetic px-square portrait: eyes px/4 apart at
+    43% height, so the crop rescales by 256/px into a 256 x 256 crop (1024
+    px out), the serving size."""
+    lm = np.zeros((68, 2), np.float32)
+    lm[0:17] = np.stack([np.linspace(0.2, 0.8, 17),
+                         0.49 + 0.25 * np.sin(np.linspace(0, np.pi, 17))], axis=1)
+    lm[36:42] = [0.375, 0.43]
+    lm[42:48] = [0.625, 0.43]
+    lm[27:36] = [0.5, 0.55]
+    lm[48:68] = [0.5, 0.66]
+    lm[48], lm[54] = [0.42, 0.66], [0.58, 0.66]
+    return lm * px
+
+
+def write_serving_zoo(root, g):
+    """Model's checkpoint layout for the style arcane1-d at the flagship
+    widths, random weights: VToonify-D at VToonifyConfig() (build_modules'
+    modules, through the port's save_reference_checkpoint), BiSeNet, pSp with
+    18 styles and its latent_avg, a one-style exemplar bank, and the
+    synthetic portrait's landmarks (landmarks.npy; landmarks_cli.npy for
+    the smoother's CLI_PX frames)."""
+    from vtoonify_tpu_torch.convert.torch_export import save_reference_checkpoint
+    from vtoonify_tpu_torch.models.psp_encoder import PSPEncoderConfig, init_psp_encoder
+
+    cfg, vt, parsing = build_modules()
+    style_dir = root / "vtoonify_d_arcane"
+    style_dir.mkdir(parents=True, exist_ok=True)
+    save_reference_checkpoint(str(style_dir / "vtoonify_s_d.pt"), vt, cfg)
+    torch.save(bisenet_reference_state(parsing), str(root / "faceparsing.pth"))
+    psp = init_psp_encoder(PSPEncoderConfig(n_styles=cfg.n_latent), g)
+    torch.save({"state_dict": psp_reference_state(psp),
+                "latent_avg": torch.randn((cfg.n_latent, 512), generator=g) * 0.3},
+               str(root / "encoder.pt"))
+    np.save(str(style_dir / "exstyle_code.npy"),
+            {"style0.png": (torch.randn((1, cfg.n_latent, 512), generator=g) * 0.3).numpy()},
+            allow_pickle=True)
+    np.save(str(root / "landmarks.npy"), portrait_landmarks())
+    np.save(str(root / "landmarks_cli.npy"), portrait_landmarks(CLI_PX))
+    return cfg
+
+
+def pipeline_options_phase(smi):
+    """packed_output, its host finish and the packed video writer against
+    the unpacked pipeline (bit-equal, the same mp4 bytes); size_bucket and
+    bucket_margin on the card against the CPU in float32; batch-16 fps
+    packed and unpacked, in turns; the host frame functions, C++ against
+    numpy. Returns the launches of the packed batch-16 call."""
+    import os
+    import tempfile
+
+    import cv2
+
+    from vtoonify_tpu_torch import native
+    from vtoonify_tpu_torch.ops import kernels as K
+    from vtoonify_tpu_torch.pipeline import video
+    from vtoonify_tpu_torch.pipeline.toonify import ToonifyPipeline
+
+    t0 = time.perf_counter()
+    check(native.backend() == "native", "the native frame library did not load")
+    cfg, vt_cpu, parsing_cpu = build_modules()
+    plain = ToonifyPipeline(vt_cpu, cfg, parsing_cpu)
+    packed = ToonifyPipeline(vt_cpu, cfg, parsing_cpu, packed_output=True)
+    rng = np.random.RandomState(SEED + 7)
+    s_w = rng.randn(1, cfg.n_latent, 512).astype(np.float32)
+    frames = rng.randint(0, 256, (OPTIONS_BATCH, 256, 256, 3)).astype(np.uint8)
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    got = packed.process_batch(frames, s_w, 0.5).cpu().numpy()
+    launches = K.launch_counts()
+    want = plain.process_batch(frames, s_w, 0.5).cpu().numpy()
+    check(got.shape == (OPTIONS_BATCH, 512, 512, 12) and got.dtype == np.uint8,
+          f"packed output {got.shape} {got.dtype}")
+    check(want.shape == (OPTIONS_BATCH, 1024, 1024, 3), f"unpacked output {want.shape}")
+    unpack_equal = all(np.array_equal(ToonifyPipeline.unpack_frame(got[k]), want[k])
+                       for k in range(OPTIONS_BATCH))
+    unpack_bgr_equal = np.array_equal(ToonifyPipeline.unpack_frame(got[0], bgr=True),
+                                      want[0][..., ::-1])
+    out_std = float(want.std())
+    for name in ("modconv3x3", "fused_leaky_relu", "upfirdn2d", "depth_to_space2"):
+        check(launches[name] > 0, f"kernel {name} was not launched by the packed pipeline")
+
+    # the file writer: a packed and an unpacked pipeline write the same mp4
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.mp4")
+        w = cv2.VideoWriter(src, cv2.VideoWriter_fourcc(*"mp4v"), 25.0, (256, 256))
+        for f in frames[:WRITER_FRAMES]:
+            w.write(f)
+        w.release()
+        written = {}
+        for name, pipe in (("packed", packed), ("plain", plain)):
+            out = os.path.join(tmp, f"{name}.mp4")
+            res = video.toonify_video(pipe, src, out, scale_image=False, s_w=s_w,
+                                      batch_size=4)
+            check(res.frames_written == WRITER_FRAMES,
+                  f"{name} writer wrote {res.frames_written} frames")
+            written[name] = Path(out).read_bytes()
+    writer_equal = written["packed"] == written["plain"]
+
+    # size bucketing, float32, card vs CPU on the same crop
+    crop = synthetic_frames(SEED + 7, 1, max(BUCKET_CROP))[:, :BUCKET_CROP[0], :BUCKET_CROP[1]]
+    bucketed = {}
+    for margin in (0, BUCKET_MARGIN):
+        kw = dict(dtype=torch.float32, size_bucket=BUCKET, bucket_margin=margin)
+        card = ToonifyPipeline(vt_cpu, cfg, parsing_cpu, **kw).process_batch(
+            crop, s_w, 0.5).cpu().numpy()
+        host = ToonifyPipeline(vt_cpu, cfg, parsing_cpu, device="cpu", **kw).process_batch(
+            crop, s_w, 0.5).numpy()
+        d = np.abs(card.astype(np.int16) - host.astype(np.int16))
+        padded = [-(-(s + 2 * margin) // BUCKET) * BUCKET for s in BUCKET_CROP]
+        bucketed[f"margin_{margin}"] = {
+            "shape": list(card.shape), "padded_to": padded, "max_lsb": int(d.max()),
+            "mean_lsb": float(d.mean()), "out_std_lsb": float(host.std())}
+        check(card.shape == host.shape == (1, 4 * BUCKET_CROP[0], 4 * BUCKET_CROP[1], 3),
+              f"bucketed output {card.shape}, CPU {host.shape}, want the exact crop's")
+        check(d.max() <= LSB_F32_MAX and d.mean() <= LSB_F32_MEAN,
+              f"bucketed (margin {margin}) card vs CPU: max {d.max()} mean {d.mean()} LSB")
+
+    # timing: batch 16, packed and unpacked in turns; on the device alone
+    # (process_batch + synchronize) and to host BGR frames as the file
+    # writer gets them (+ the copy to the host + each frame's finish)
+    finish = {"plain": native.rgb_to_bgr,
+              "packed": lambda f: native.depth_to_space2_u8(f, bgr=True)}
+    pipes = {"plain": plain, "packed": packed}
+
+    def device_call(name):
+        return lambda: pipes[name].process_batch(frames, s_w, 0.5)
+
+    def to_host(name):
+        """ms of process_batch + the copy to the host, and of the 16
+        frames' finish after it."""
+        t1 = time.perf_counter()
+        host = pipes[name].process_batch(frames, s_w, 0.5).cpu().numpy()
+        t2 = time.perf_counter()
+        for f in host:
+            finish[name](f)
+        return (t2 - t1) * 1e3, (time.perf_counter() - t2) * 1e3
+
+    for name in pipes:
+        for _ in range(2):
+            to_host(name)
+    dev_ms = {name: [] for name in pipes}
+    host_ms_ = {name: [] for name in pipes}
+    copy_ms = {name: [] for name in pipes}
+    finish_ms = {name: [] for name in pipes}
+    for _ in range(OPTIONS_REPS):
+        for name in ("plain", "packed", "packed", "plain"):
+            dev_ms[name].append(_sync_ms(device_call(name))[0])
+            torch.cuda.synchronize()
+            c, f = to_host(name)
+            copy_ms[name].append(c)
+            finish_ms[name].append(f)
+            host_ms_[name].append(c + f)
+    fin_ms = {name: host_ms(lambda: finish[name](h), 20) for name, h in
+              (("plain", want[0]), ("packed", got[0]))}
+    native_vs_numpy = frameio_native_vs_numpy(want[0], got[0])
+    emit({"phase": "pipeline_options", "batch": OPTIONS_BATCH, "dtype": "bfloat16",
+          "in_px": 256, "packed_shape": list(got.shape),
+          "unpack_frame_equal": unpack_equal, "unpack_frame_bgr_equal": unpack_bgr_equal,
+          "writer_mp4_equal": writer_equal, "writer_frames": WRITER_FRAMES,
+          "bucket": BUCKET, "crop": list(BUCKET_CROP), "bucketed_f32_card_vs_cpu": bucketed,
+          "bound_max_lsb": LSB_F32_MAX, "bound_mean_lsb": LSB_F32_MEAN,
+          "launches": launches, "out_std_lsb": out_std,
+          "device_fps_median": {k: OPTIONS_BATCH * 1e3 / float(np.median(v))
+                                for k, v in dev_ms.items()},
+          "to_host_bgr_fps_median": {k: OPTIONS_BATCH * 1e3 / float(np.median(v))
+                                     for k, v in host_ms_.items()},
+          "device_ms_runs": dev_ms, "to_host_bgr_ms_runs": host_ms_,
+          "to_host_copy_ms_runs": copy_ms, "finish_16_frames_ms_runs": finish_ms,
+          "host_finish_ms_per_frame": fin_ms,
+          "frameio_native_vs_numpy_ms": native_vs_numpy,
+          "nvidia_smi": smi, "seconds": time.perf_counter() - t0})
+    check(unpack_equal and unpack_bgr_equal,
+          "unpack_frame of the packed output differs from the unpacked output")
+    check(writer_equal, "the packed writer's mp4 differs from the unpacked one's")
+    check(out_std > 10, "output image is flat")
+    del plain, packed
+    torch.cuda.empty_cache()
+    return launches
+
+
+def frameio_native_vs_numpy(frame, packed_frame, reps=20, rounds=3):
+    """ms of the host's frame I/O a 1024 px frame: native.rgb_to_bgr and
+    native.depth_to_space2_u8(bgr=True), the C++ library against the numpy
+    versions (VTOONIFY_NO_NATIVE=1), in turns; medians of `reps` calls a
+    turn, and their median over the turns."""
+    import os
+
+    from vtoonify_tpu_torch import native
+
+    fns = {"rgb_to_bgr": lambda: native.rgb_to_bgr(frame),
+           "depth_to_space2_u8_bgr": lambda: native.depth_to_space2_u8(packed_frame, bgr=True)}
+    runs = {name: {"native": [], "numpy": []} for name in fns}
+    try:
+        for _ in range(rounds):
+            for impl in ("native", "numpy", "numpy", "native"):
+                os.environ["VTOONIFY_NO_NATIVE"] = "1" if impl == "numpy" else "0"
+                check(native.backend() == impl, f"native.backend() is not {impl}")
+                for name, fn in fns.items():
+                    fn()
+                    times = []
+                    for _ in range(reps):
+                        t1 = time.perf_counter()
+                        fn()
+                        times.append((time.perf_counter() - t1) * 1e3)
+                    runs[name][impl].append(float(np.median(times)))
+    finally:
+        os.environ.pop("VTOONIFY_NO_NATIVE", None)
+    return {name: {**{impl: float(np.median(v)) for impl, v in r.items()}, "turns": r}
+            for name, r in runs.items()}
+
+
+def serve_http_phase(smi, root):
+    """cli/serve.py's server over Model (the card) on the serving zoo in
+    `root`: its routes and error codes, then the synthetic 1024 px portrait
+    POSTed once to warm and HTTP_TIMED times, each body byte-equal to
+    cv2.imencode of Model.image_toonify on the same upload. Returns the
+    launches of the timed requests."""
+    import http.client
+
+    import cv2
+
+    from vtoonify_tpu_torch.cli import serve
+    from vtoonify_tpu_torch.ops import kernels as K
+    from vtoonify_tpu_torch.pipeline.model_api import Model
+
+    t0 = time.perf_counter()
+    model = Model(checkpoint_root=str(root), landmarks=str(root / "landmarks.npy"))
+    server = serve.build_server(model, "127.0.0.1", 0, default_style=HTTP_STYLE)
+    thread = serve.serve_forever_in_thread(server)
+    port = server.server_address[1]
+
+    def request(method, path, body=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            conn.request(method, path, body=body)
+            r = conn.getresponse()
+            return r.status, r.read()
+        finally:
+            conn.close()
+
+    portrait = synthetic_frames(SEED + 6, 1, PORTRAIT_PX)[0]
+    ok, jpg = cv2.imencode(".jpg", cv2.cvtColor(portrait, cv2.COLOR_RGB2BGR))
+    check(ok, "cv2 could not encode the portrait")
+    upload = jpg.tobytes()
+    url = f"/toonify?style_type={HTTP_STYLE}&style_degree=0.5"
+    try:
+        status, styles = request("GET", "/styles")
+        check(status == 200 and HTTP_STYLE in json.loads(styles),
+              f"/styles answered {status}")
+        codes = {"unknown style": request("POST", "/toonify?style_type=nope", upload)[0],
+                 "empty body": request("POST", url, b"")[0],
+                 "unknown path": request("GET", "/nope")[0]}
+        check(codes == {"unknown style": 400, "empty body": 400, "unknown path": 404},
+              f"error codes {codes}")
+        t1 = time.perf_counter()
+        status, first = request("POST", url, upload)
+        first_ms = (time.perf_counter() - t1) * 1e3
+        check(status == 200, f"first request: {status} {first[:200]!r}")
+        # the handler's two Model calls, timed inside the server's thread
+        inner = collections.defaultdict(list)
+
+        def timed(name, fn):
+            def call(*args, **kw):
+                t = time.perf_counter()
+                out = fn(*args, **kw)
+                inner[name].append((time.perf_counter() - t) * 1e3)
+                return out
+            return call
+
+        model.detect_and_align_frame = timed("crop_align", model.detect_and_align_frame)
+        model.image_toonify = timed("style_and_frame", model.image_toonify)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        times, bodies = [], []
+        for _ in range(HTTP_TIMED):
+            t1 = time.perf_counter()
+            status, body = request("POST", url, upload)
+            times.append((time.perf_counter() - t1) * 1e3)
+            check(status == 200, f"request: {status} {body[:200]!r}")
+            bodies.append(body)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        del model.detect_and_align_frame, model.image_toonify
+        # the HTTP round trip alone: an upload of the same size that the
+        # server reads and refuses at cv2.imdecode (400)
+        junk = bytes(len(upload))
+        transport = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            status = request("POST", url, junk)[0]
+            transport.append((time.perf_counter() - t1) * 1e3)
+            check(status == 400, f"an undecodable upload answered {status}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), "the server thread did not stop")
+
+    # the same upload through Model in process, as the server decodes it
+    bgr = cv2.imdecode(np.frombuffer(upload, np.uint8), cv2.IMREAD_COLOR)
+    frame, aligned, msg = model.detect_and_align_frame(cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB))
+    check(msg == "Success", f"detect_and_align_frame: {msg}")
+    want = model.image_toonify(frame, aligned, style_degree=0.5, style_type=HTTP_STYLE)
+    ok, enc = cv2.imencode(".jpg", cv2.cvtColor(want, cv2.COLOR_RGB2BGR))
+    same = [b == enc.tobytes() for b in [first, *bodies]]
+    pipe = model.load_model(HTTP_STYLE)
+
+    # where a request's time goes: its stages in process, median of 5
+    s_w = pipe.compute_style(aligned)
+    stages = {
+        "decode": lambda: cv2.cvtColor(cv2.imdecode(np.frombuffer(upload, np.uint8),
+                                                    cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB),
+        "crop_align": lambda: model.detect_and_align_frame(
+            cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)),
+        "compute_style": lambda: pipe.compute_style(aligned),
+        "frame_to_host_rgb": lambda: pipe.process_image(frame, s_w, 0.5),
+        "encode": lambda: cv2.imencode(".jpg", cv2.cvtColor(want, cv2.COLOR_RGB2BGR)),
+    }
+    stage_ms = {k: float(np.median([_sync_ms(fn)[0] for _ in range(5)]))
+                for k, fn in stages.items()}
+
+    def toonify():
+        return model.image_toonify(frame, aligned, style_degree=0.5, style_type=HTTP_STYLE)
+
+    stage_ms["style_and_frame_this_thread"] = float(np.median(
+        [_sync_ms(toonify)[0] for _ in range(5)]))
+    new_thread = new_thread_costs(toonify)
+    emit({"phase": "serve_http", "style": HTTP_STYLE, "upload_px": PORTRAIT_PX,
+          "upload_bytes": len(upload), "crop_px": list(frame.shape[:2]),
+          "out_px": list(want.shape[:2]), "pipeline_device": str(pipe.device),
+          "packed_output": pipe.packed_output, "error_codes": codes,
+          "bodies_equal_image_toonify": same, "body_bytes": len(bodies[0]),
+          "first_request_ms": first_ms, "requests_timed": HTTP_TIMED,
+          "p50_request_ms": float(np.median(times)), "max_request_ms": max(times),
+          "request_ms": times, "transport_ms_median": float(np.median(transport)),
+          "in_request_ms_median": {k: float(np.median(v)) for k, v in inner.items()},
+          "stage_ms_median": stage_ms,
+          "stages_sum_ms": sum(stage_ms[k] for k in stages),
+          "out_std_lsb": float(want.std()),
+          "launches_per_request": {k: v / HTTP_TIMED for k, v in launches.items()},
+          "worker_threads": serve.PooledHTTPServer.workers, "new_thread": new_thread,
+          "nvidia_smi": smi, "seconds": time.perf_counter() - t0})
+    check(pipe.device.type == "cuda", "Model's pipeline is not on the card")
+    check(want.shape == (4 * frame.shape[0], 4 * frame.shape[1], 3),
+          f"image_toonify gave {want.shape} for a {frame.shape} crop")
+    check(all(same), "a served body differs from cv2.imencode of Model.image_toonify")
+    check(float(want.std()) > 10, "served image is flat")
+    for name in ("modconv3x3", "fused_leaky_relu", "upfirdn2d", "depth_to_space2"):
+        check(launches[name] > 0, f"kernel {name} was not launched by the server")
+    # the handler class closes over the Model and the server over the
+    # class: a reference cycle, so collect it before the cache is emptied
+    del model, server, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def new_thread_costs(fn, threads=3):
+    """What a request pays on a thread that has not run the model before
+    (as a server that starts a thread per request runs each): fn() twice on
+    each of `threads` new threads (host wall ending in a synchronize), and
+    one more new thread's first call under torch.profiler (host time by op,
+    the table in OUT_DIR)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    calls, profs = [], []
+
+    def run(profiled):
+        if profiled:
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                _sync_ms(fn)
+            profs.append(prof)
+        else:
+            calls.append([_sync_ms(fn)[0] for _ in range(2)])
+
+    for profiled in [False] * threads + [True]:
+        t = threading.Thread(target=run, args=(profiled,))
+        t.start()
+        t.join()
+    check(len(calls) == threads and len(profs) == 1, "a new-thread call failed")
+    avgs = sorted(profs[0].key_averages(), key=lambda e: e.self_cpu_time_total,
+                  reverse=True)
+    (OUT_DIR / "serve_new_thread_profile.txt").write_text(
+        profs[0].key_averages().table(sort_by="self_cpu_time_total", row_limit=40))
+    return {"first_call_ms": [c[0] for c in calls], "second_call_ms": [c[1] for c in calls],
+            "profiled_first_call_top_host_ops": [
+                {"op": e.key[:80], "self_cpu_ms": e.self_cpu_time_total / 1e3,
+                 "count": e.count} for e in avgs[:8]]}
+
+
+def raft_reference_state(module):
+    """A port RAFT's state under the reference RAFT's keys, as
+    raft-things.pth holds them (the inverse of convert_raft's key map)."""
+    sd = {}
+    for k, v in module.state_dict().items():
+        parts = k.split(".")
+        if parts[0] in ("fnet", "cnet"):
+            if parts[1] == "layers":
+                parts[1:3] = [f"layer{int(parts[2]) + 1}"]
+                parts = ["downsample.0" if p == "down" else p
+                         for p in parts if p != "norms"]
+            elif parts[1] == "bn1":
+                parts[1] = "norm1"
+        else:
+            sub = {"enc": "encoder", "gru": "gru", "flow_head": "flow_head",
+                   "mask": "mask"}[parts[1]]
+            parts[0:2] = ["update_block", sub]
+            if sub == "mask":
+                parts[2] = {"conv1": "0", "conv2": "2"}[parts[2]]
+        sd["module." + ".".join(parts)] = v.clone()
+    return sd
+
+
+def smooth_parsing_phase(smi, root):
+    """pipeline/smooth_parsing.py with RAFT at the raft-things widths and
+    BiSeNet, random weights, float32. Gates with TF32 off: one window card
+    vs CPU and alt vs all-pairs on the card, RAFT's flows alt vs all-pairs
+    at JAX's bounds. Then in the smoother's default precision (TF32 for
+    cuDNN's convs and the matmuls, as its CLI runs): the smoother timed over
+    a 16-frame video at 256 and 512 px with both corr impls (ms per smoothed
+    frame, peak memory, B3's launches), the 256 px maps held to the CPU's
+    float32 map of one frame of the same video, one run profiled, and its
+    CLI on a cv2 mp4, whose maps feed the style-transfer CLI on the serving
+    zoo in `root`. Returns the launches of the timed runs."""
+    from vtoonify_tpu_torch.models.bisenet import bisenet_apply, init_bisenet
+    from vtoonify_tpu_torch.models.raft import RAFTConfig, init_raft, raft_apply
+    from vtoonify_tpu_torch.ops.interp import resize_bilinear
+    from vtoonify_tpu_torch.pipeline import smooth_parsing as SP
+
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(SEED + 8)
+    raft = init_raft(RAFTConfig(), g)
+    parsing = init_bisenet(generator=g)
+    raft_dev = copy.deepcopy(raft).cuda()
+    rec = {"phase": "smooth_parsing", "raft": "RAFTConfig() (raft-things widths)",
+           "window": SMOOTH_WINDOW, "iters": SMOOTH_ITERS, "dtype": "float32",
+           "gates_tf32": False, "timed_and_cli_tf32": True}
+
+    # one window, card vs CPU: 64 px frames, fused at 128 px
+    k = 2 * SMOOTH_WINDOW + 1
+    clip = torch.from_numpy(synthetic_frames(SEED + 8, k, SMOOTH_GATE_PX)).permute(0, 3, 1, 2)
+    with SP.float32_precision(False), torch.inference_mode():
+        frames2x = resize_bilinear(clip.float() / 127.5 - 1.0,
+                                   (2 * SMOOTH_GATE_PX, 2 * SMOOTH_GATE_PX),
+                                   align_corners=False)
+        parses = bisenet_apply(parsing, 2.0 * frames2x)
+        host = SP.fuse_window(raft, frames2x, parses, center=SMOOTH_WINDOW,
+                              iters=SMOOTH_ITERS)
+        card, card_alt = (SP.fuse_window(raft_dev, frames2x.cuda(), parses.cuda(),
+                                         center=SMOOTH_WINDOW, iters=SMOOTH_ITERS,
+                                         alt_corr=alt).cpu() for alt in (False, True))
+    rec["window_card_vs_cpu_rel_l2"] = ((card - host).norm() / host.norm()).item()
+    rec["window_alt_vs_allpairs_rel_l2"] = ((card_alt - card).norm() / card.norm()).item()
+    rec["window_shape"] = list(card.shape)
+    check(tuple(card.shape) == (1, 19, SMOOTH_GATE_PX, SMOOTH_GATE_PX)
+          and torch.isfinite(card).all() and torch.isfinite(card_alt).all(),
+          f"fuse_window gave {tuple(card.shape)}")
+    check(max(rec["window_card_vs_cpu_rel_l2"], rec["window_alt_vs_allpairs_rel_l2"])
+          <= SMOOTH_REL_L2, f"fuse_window: card vs CPU relative L2 "
+          f"{rec['window_card_vs_cpu_rel_l2']}, alt vs all-pairs "
+          f"{rec['window_alt_vs_allpairs_rel_l2']}")
+
+    # all-pairs vs alt on the card: one pair of 256 px frames, fused at 512
+    pair = torch.from_numpy(synthetic_frames(SEED + 9, 2, 2 * SMOOTH_PX[0])).permute(
+        0, 3, 1, 2).float().cuda()
+    with SP.float32_precision(False), torch.inference_mode():
+        flows = {impl: raft_apply(raft_dev, pair[:1], pair[1:], RAFTConfig(corr_impl=impl),
+                                  iters=SMOOTH_ITERS)
+                 for impl in ("allpairs", "alt")}
+    agree = {}
+    for i, (name, atol) in enumerate((("flow_low", 1e-3), ("flow_up", 1e-2))):
+        a, b = flows["allpairs"][i], flows["alt"][i]
+        agree[name] = {"max_abs_diff": (a - b).abs().max().item(),
+                       "max_abs": a.abs().max().item(), "atol": atol, "rtol": 1e-3,
+                       "within": bool(torch.allclose(b, a, atol=atol, rtol=1e-3))}
+    rec["alt_vs_allpairs_flows"] = agree
+    check(all(v["within"] for v in agree.values()) and all(
+        torch.isfinite(f).all() for fl in flows.values() for f in fl),
+        f"alt vs all-pairs flows on the card: {agree}")
+    del flows, pair
+
+    # timed, profiled and the CLI in the smoother's default precision, TF32
+    # for cuDNN's convs and the matmuls (smooth_video_parsing_maps sets it):
+    # with TF32 off cuDNN's heuristics pick FFT algorithms for RAFT's
+    # 128->256 3x3 convs, thousands of small complex GEMMs a conv (2.6 s a
+    # smoothed 256 px frame)
+    timed, launches = _smooth_timed(smi, raft, parsing, root, rec)
+    rec.update(timed=timed, launches=dict(launches), nvidia_smi=smi,
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    del raft_dev
+    torch.cuda.empty_cache()
+    return dict(launches)
+
+
+def tf32_vs_cpu(raft, parsing, clip, maps):
+    """The card's TF32 maps of frame SMOOTH_TF32_FRAME of `clip` (maps[impl]
+    for both corr impls) against the CPU's float32 map of that frame, made
+    from its own window as smooth_video_parsing_maps forms it; relative L2,
+    gated at SMOOTH_TF32_REL_L2."""
+    from vtoonify_tpu_torch.pipeline import smooth_parsing as SP
+
+    t1 = time.perf_counter()
+    sel = SP.window_indices(len(clip), SMOOTH_WINDOW)[SMOOTH_TF32_FRAME]
+    with torch.inference_mode():
+        frames2x, parses = SP.prepare_frames(parsing, clip[sel], torch.device("cpu"))
+        want = SP.fuse_window(raft, frames2x, parses, center=SMOOTH_WINDOW,
+                              iters=SMOOTH_ITERS)[0].permute(1, 2, 0).numpy()
+    out = {"frame": SMOOTH_TF32_FRAME, "bound_rel_l2": SMOOTH_TF32_REL_L2,
+           "cpu_seconds": time.perf_counter() - t1}
+    for impl, m in maps.items():
+        out[f"{impl}_rel_l2"] = float(np.linalg.norm(m[SMOOTH_TF32_FRAME] - want)
+                                      / np.linalg.norm(want))
+        out[f"{impl}_max_abs"] = float(np.abs(m[SMOOTH_TF32_FRAME] - want).max())
+    check(max(out[f"{impl}_rel_l2"] for impl in maps) <= SMOOTH_TF32_REL_L2,
+          f"the card's TF32 maps against the CPU's float32: {out}")
+    return out
+
+
+def _smooth_timed(smi, raft, parsing, root, rec):
+    """smooth_parsing_phase's timed runs, its profile and its CLI run (into
+    rec["profile_..."] and rec["cli"]); returns (timed records, launches)."""
+    import io
+    import tempfile
+
+    import cv2
+
+    from vtoonify_tpu_torch.cli import style_transfer
+    from vtoonify_tpu_torch.ops import kernels as K
+    from vtoonify_tpu_torch.pipeline import smooth_parsing as SP
+
+    timed, launches = [], collections.Counter()
+    for px in SMOOTH_PX:
+        clip = synthetic_frames(SEED + 10, SMOOTH_FRAMES, px)
+        maps = {}
+        for impl in ("allpairs", "alt"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            wall_ms, maps[impl] = _sync_ms(lambda: SP.smooth_video_parsing_maps(
+                raft, parsing, clip, window=SMOOTH_WINDOW, iters=SMOOTH_ITERS,
+                alt_corr=impl == "alt", tf32=True))
+            counts = K.launch_counts()
+            launches.update(counts)
+            m = maps[impl]
+            check(m.shape == (SMOOTH_FRAMES, px, px, 19) and m.dtype == np.float32
+                  and np.isfinite(m).all(), f"smoothed maps {m.shape} {m.dtype} at {px} px")
+            check(counts["upfirdn2d"] > 0, "smoothing did not launch B3")
+            timed.append({"px": px, "corr": impl, "frames": SMOOTH_FRAMES,
+                          "ms_per_frame": wall_ms / SMOOTH_FRAMES,
+                          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                          "b3_launches_per_frame": counts["upfirdn2d"] / SMOOTH_FRAMES,
+                          "launches": counts})
+        a, b = maps["allpairs"], maps["alt"]
+        timed[-1]["maps_alt_vs_allpairs_rel_l2"] = float(np.linalg.norm(b - a)
+                                                         / np.linalg.norm(a))
+        if px == SMOOTH_PX[0]:
+            rec["tf32_vs_cpu_f32"] = tf32_vs_cpu(raft, parsing, clip, maps)
+        del maps, a, b
+    # one profiled run: 4 frames of 256 px, all-pairs
+    clip = synthetic_frames(SEED + 10, 4, SMOOTH_PX[0])
+    prof = device_profile(lambda: SP.smooth_video_parsing_maps(
+        raft, parsing, clip, window=SMOOTH_WINDOW, iters=SMOOTH_ITERS),
+        "smooth_profile.txt")
+    rec["profile_4_frames_256px_allpairs"] = {
+        k: prof[k] for k in ("wall_s", "device_busy_s", "device_busy_share",
+                             "b3_device_ms", "htod_pageable_copies", "top_device_ops")}
+
+    # the CLI: an mp4 written by cv2 -> _parsingmap.npy -> style_transfer
+    # --video --parsing_map_path on the serving zoo
+    t1 = time.perf_counter()
+    log = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        raft_path = tmp / "raft-things.pth"
+        torch.save(raft_reference_state(raft), str(raft_path))
+        torch.save(bisenet_reference_state(parsing), str(tmp / "faceparsing.pth"))
+        frames = synthetic_frames(SEED + 11, CLI_FRAMES, CLI_PX)
+        src = str(tmp / "clip.mp4")
+        w = cv2.VideoWriter(src, cv2.VideoWriter_fourcc(*"mp4v"), 25.0, (CLI_PX, CLI_PX))
+        for f in frames:
+            w.write(f)
+        w.release()
+        with contextlib.redirect_stdout(log):
+            SP.main(["--video_path", src, "--raft_path", str(raft_path),
+                     "--faceparsing_path", str(tmp / "faceparsing.pth"),
+                     "--output_path", str(tmp)])
+        maps = np.load(tmp / "clip_parsingmap.npy")
+        check(maps.shape == (CLI_FRAMES, CLI_PX, CLI_PX, 19) and np.isfinite(maps).all(),
+              f"the smoother's CLI wrote {maps.shape}")
+        with contextlib.redirect_stdout(log):
+            style_transfer.main([
+                "--content", src, "--video", "--style_id", "0",
+                "--ckpt", str(root / "vtoonify_d_arcane/vtoonify_s_d.pt"),
+                "--exstyle_path", str(root / "vtoonify_d_arcane/exstyle_code.npy"),
+                "--faceparsing_path", str(root / "faceparsing.pth"),
+                "--style_encoder_path", str(root / "encoder.pt"),
+                "--landmarks", str(root / "landmarks_cli.npy"),
+                "--parsing_map_path", str(tmp / "clip_parsingmap.npy"),
+                "--output_path", str(tmp / "cli")])
+        cli_mp4 = (tmp / "cli" / "clip_vtoonify_d.mp4").read_bytes()
+        direct = maps_in_process(root, src, maps, tmp / "direct.mp4")
+        direct_mp4 = (tmp / "direct.mp4").read_bytes()
+    (OUT_DIR / "smooth_parsing_cli_stdout.txt").write_text(log.getvalue())
+    moved = np.abs(direct["transposed"].astype(np.int16) - direct["maps"])
+    rec["cli"] = {"frames": CLI_FRAMES, "px": CLI_PX, "maps_shape": list(maps.shape),
+                  "mp4_equal_process_batch_with_parsing": cli_mp4 == direct_mp4,
+                  "transposed_maps_max_lsb": int(moved.max()),
+                  "transposed_maps_mean_lsb": float(moved.mean()),
+                  "seconds": time.perf_counter() - t1}
+    check(direct["maps"].shape == (CLI_FRAMES, 4 * CLI_PX, 4 * CLI_PX, 3),
+          f"process_batch_with_parsing gave {direct['maps'].shape}")
+    check(cli_mp4 == direct_mp4, "style_transfer --parsing_map_path wrote other frames "
+          "than process_batch_with_parsing fed the same maps")
+    check(moved.max() > 0, "transposed parsing maps did not change the stylized frames")
+    return timed, launches
+
+
+def maps_in_process(root, src, maps, out_path):
+    """What style_transfer --video --parsing_map_path writes for `src` on the
+    serving zoo in `root`, made here: its modules loaded as the CLI loads
+    them, the clip's frames as decoded (no --scale_image: the frames are
+    the crops), the style from the first, then process_batch_with_parsing
+    on all CLI_FRAMES crops at once (the CLI's one batch) fed `maps`,
+    written to out_path by the CLI's video writer. Returns the frames made
+    with `maps` and with the maps transposed."""
+    from vtoonify_tpu_torch.pipeline import crop as crop_mod
+    from vtoonify_tpu_torch.pipeline import video
+    from vtoonify_tpu_torch.pipeline.landmarks import make_landmarker
+    from vtoonify_tpu_torch.pipeline.toonify import ToonifyPipeline
+    from vtoonify_tpu_torch.utils import checkpoint as ckpt_util
+
+    vt, cfg = ckpt_util.load_reference_vtoonify(str(root / "vtoonify_d_arcane/vtoonify_s_d.pt"))
+    psp, latent_avg, psp_cfg = ckpt_util.load_reference_psp(str(root / "encoder.pt"))
+    bank, names = ckpt_util.load_exstyle_bank(str(root / "vtoonify_d_arcane/exstyle_code.npy"))
+    pipe = ToonifyPipeline(
+        vt, cfg, ckpt_util.load_reference_faceparsing(str(root / "faceparsing.pth")),
+        psp_params=psp, psp_cfg=psp_cfg, latent_avg=latent_avg, exstyle=bank[names[0]])
+    decoded = list(video.iterate_video_frames(src))
+    crops = np.stack([crop_mod.preprocess_frame(f, None, False) for _, f in decoded])
+    check(len(crops) == CLI_FRAMES, f"decoded {len(crops)} frames")
+    landmarker = make_landmarker(landmarks=str(root / "landmarks_cli.npy"))
+    s_w = pipe.compute_style(crop_mod.align_face(crops[0], landmarker))
+    out = {name: pipe.process_batch_with_parsing(crops, m, s_w, 0.5).cpu().numpy()
+           for name, m in (("maps", maps),
+                           ("transposed", np.ascontiguousarray(maps.transpose(0, 2, 1, 3))))}
+    writer = video._AsyncWriter(str(out_path), decoded[0][0],
+                                (4 * crops.shape[2], 4 * crops.shape[1]))
+    for f in out["maps"]:
+        writer.write(f)
+    check(writer.close() == CLI_FRAMES, "the writer lost frames")
+    return out
+
+
+def write_release_zoo(root, g):
+    """The release cases' checkpoint layout at the --tiny widths, random
+    weights: VToonify-D (cartoon, a 65-style bank) and VToonify-T (arcane),
+    BiSeNet and pSp."""
+    from vtoonify_tpu_torch.convert.torch_export import save_reference_checkpoint
+    from vtoonify_tpu_torch.models.bisenet import init_bisenet
+    from vtoonify_tpu_torch.models.psp_encoder import PSPEncoderConfig, init_psp_encoder
+    from vtoonify_tpu_torch.models.vtoonify import VToonifyConfig, init_vtoonify
+
+    for backbone, rel in (("dualstylegan", "vtoonify_d_cartoon/vtoonify_s_d.pt"),
+                          ("toonify", "vtoonify_t_arcane/vtoonify.pt")):
+        cfg = VToonifyConfig(backbone=backbone, **TINY_VT)
+        vt = init_vtoonify(cfg, generator=g)
+        gen = vt.generator.generator if backbone == "dualstylegan" else vt.generator
+        with torch.no_grad():
+            for blk in gen.to_rgbs:
+                blk.bias.normal_(0.0, 0.5, generator=g)
+        (root / rel).parent.mkdir(parents=True, exist_ok=True)
+        save_reference_checkpoint(str(root / rel), vt, cfg)
+    n = cfg.n_latent
+    torch.save(bisenet_reference_state(init_bisenet(generator=g)), str(root / "faceparsing.pth"))
+    torch.save({"state_dict": psp_reference_state(init_psp_encoder(PSPEncoderConfig(n_styles=n), g)),
+                "latent_avg": torch.randn((n, 512), generator=g) * 0.3},
+               str(root / "encoder.pt"))
+    np.save(str(root / "vtoonify_d_cartoon/exstyle_code.npy"),
+            {f"style{i}.png": (torch.randn((1, n, 512), generator=g) * 0.3).numpy()
+             for i in range(65)}, allow_pickle=True)
+
+
+def release_gate_phase():
+    """cli/validate_release.py on a tiny release zoo: goldens made by the
+    port's style-transfer CLI with --cpu --fp32, then the gate on the card
+    (bf16) passes them at >= 35 dB, and fails (exit code 1) a perturbed
+    golden; then
+    cli/inference_playground.py writes its three parts on the card. Returns
+    the launches of the card's gate run against the CPU goldens plus those
+    of the playground (not the perturbed golden's run)."""
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    import cv2
+
+    from vtoonify_tpu_torch.cli import inference_playground, style_transfer
+    from vtoonify_tpu_torch.cli import validate_release as vr
+    from vtoonify_tpu_torch.ops import kernels as K
+
+    t0 = time.perf_counter()
+    rec = {"phase": "release_gate", "cases": GATE_CASES, "config": TINY_VT}
+    log = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ckpt, data, lms, golden = (tmp / d for d in ("checkpoint", "data", "lm", "golden"))
+        for d in (ckpt, data, lms):
+            d.mkdir()
+        write_release_zoo(ckpt, torch.Generator().manual_seed(SEED + 12))
+        for i, stem in enumerate(("077436", "038648")):
+            img = synthetic_frames(SEED + 13 + i, 1, PORTRAIT_PX)[0]
+            cv2.imwrite(str(data / f"{stem}.jpg"), cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+            np.save(lms / f"{stem}.npy", portrait_landmarks())
+        common = ["--checkpoint_root", str(ckpt), "--data_root", str(data),
+                  "--landmarks_root", str(lms), "--cases", *GATE_CASES, "--skip_video"]
+
+        def gate(*argv):
+            report = tmp / "report.json"
+            with contextlib.redirect_stdout(log):
+                code = vr.main([*common, *argv, "--json_out", str(report)])
+            return code, json.loads(report.read_text())["results"]
+
+        # goldens: each case's command through the port's style-transfer
+        # CLI on the CPU in float32, as the reference's goldens are float32
+        # (the card's gate runs the CLI's default, bf16)
+        golden.mkdir()
+        for case in (c for c in vr.CASES if c.name in GATE_CASES):
+            stem = case.content.split(".")[0]
+            argv = ["--content", str(data / case.content), "--ckpt", str(ckpt / case.ckpt),
+                    "--scale_image", "--output_path", str(tmp / "cpu"),
+                    "--faceparsing_path", str(ckpt / "faceparsing.pth"),
+                    "--style_encoder_path", str(ckpt / "encoder.pt"),
+                    "--padding", *map(str, case.padding), "--backbone", case.backbone,
+                    "--landmarks", str(lms / f"{stem}.npy"), "--cpu", "--fp32"]
+            if case.style_id is not None:
+                argv += ["--style_id", str(case.style_id)]
+            with contextlib.redirect_stdout(log):
+                style_transfer.main(argv)
+            shutil.copy(tmp / "cpu" / f"{stem}_vtoonify_{case.backbone[0]}.jpg",
+                        golden / f"{case.name}.jpg")
+
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        code, results = gate("--golden_root", str(golden), "--output_path", str(tmp / "card"))
+        torch.cuda.synchronize()
+        launches = {"gate": K.launch_counts()}
+        rec["card_vs_cpu_goldens"] = {"exit": code, "results": results}
+        check(code == 0 and [r["case"] for r in results] == GATE_CASES
+              and all(r["pass"] and r["psnr_db"] >= vr.MIN_PSNR_DB for r in results),
+              f"the card's gate against the CPU goldens: exit {code}, {results}")
+
+        g0 = golden / f"{GATE_CASES[0]}.jpg"
+        im = cv2.imread(str(g0)).astype(np.int16)
+        noise = np.random.RandomState(SEED + 14).randint(-60, 61, im.shape)
+        cv2.imwrite(str(g0), np.clip(im + noise, 0, 255).astype(np.uint8))
+        code, results = gate("--golden_root", str(golden), "--output_path", str(tmp / "card2"))
+        rec["perturbed_golden"] = {"exit": code, "results": results}
+        check(code == 1 and [r["pass"] for r in results] == [False, True],
+              f"the gate against a perturbed golden: exit {code}, {results}")
+
+        out = tmp / "playground"
+        K.reset_launch_counts()
+        with contextlib.redirect_stdout(log):
+            inference_playground.main([
+                "--checkpoint_root", str(ckpt), "--content", str(data / "077436.jpg"),
+                "--out", str(out), "--landmarks", str(lms / "077436.npy"),
+                "--style_type", "cartoon1-d", "--model", "cartoon1-d",
+                "--styles", "cartoon1-d,cartoon2-d"])
+        torch.cuda.synchronize()
+        launches["playground"] = K.launch_counts()
+        names = sorted(os.listdir(out))
+        want = sorted(["demo_cartoon1-d.jpg", "walkthrough_ds0.0.jpg",
+                       "walkthrough_ds0.5.jpg", "walkthrough_ds1.0.jpg",
+                       "style_cartoon1-d.jpg", "style_cartoon2-d.jpg",
+                       "style_color_transfer.jpg"])
+        shapes = {n: cv2.imread(str(out / n)).shape for n in names}
+        rec["playground"] = {"files": names, "shapes": sorted(set(map(str, shapes.values())))}
+        check(names == want, f"the playground wrote {names}, not {want}")
+        check(len(set(shapes.values())) == 1, f"playground images {shapes}")
+    (OUT_DIR / "release_gate_stdout.txt").write_text(log.getvalue())
+    for run, counts in launches.items():
+        for name in ("modconv3x3", "fused_leaky_relu", "upfirdn2d", "depth_to_space2"):
+            check(counts[name] > 0, f"kernel {name} was not launched by the {run}")
+    rec.update(launches=launches, seconds=time.perf_counter() - t0)
+    emit(rec)
+    return dict(collections.Counter(launches["gate"]) + collections.Counter(launches["playground"]))
+
+
+# ---------------------------------------------------------------------------
 # train: the stage-2 step
 
 
@@ -1539,15 +2405,37 @@ def main():
         # A/B of two trees runs this in each); no result line
         serve_phases(smi)
         style_engine_phase(smi)
+        pipeline_options_phase(smi)
+        with tempfile.TemporaryDirectory() as tmp:
+            write_serving_zoo(Path(tmp), torch.Generator().manual_seed(SEED + 5))
+            serve_http_phase(smi, Path(tmp))
         train_phase(smi, "bfloat16", steps=3)
         pretrain_d_phase(smi)
         train_t_phase(smi, stages=("train",))
         return
+    if sys.argv[1:] == ["--apps"]:
+        # the inference apps alone (pipeline options, the HTTP server,
+        # smoothing, the release gate); no result line
+        pipeline_options_phase(smi)
+        with tempfile.TemporaryDirectory() as tmp:
+            write_serving_zoo(Path(tmp), torch.Generator().manual_seed(SEED + 5))
+            serve_http_phase(smi, Path(tmp))
+            smooth_parsing_phase(smi, Path(tmp))
+        release_gate_phase()
+        return
     check(len(sys.argv) == 1,
-          "usage: chip_smoke.py [--kernels NAME[,NAME...] | --paths]")
+          "usage: chip_smoke.py [--kernels NAME[,NAME...] | --paths | --apps]")
     summary = kernel_phase(dev)
     launches_serve = serve_phases(smi)
     launches_style_engine = style_engine_phase(smi)
+    launches_options = pipeline_options_phase(smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_serving_zoo(Path(tmp), torch.Generator().manual_seed(SEED + 5))
+        emit({"phase": "serving_zoo", "seconds": time.perf_counter() - t0})
+        launches_http = serve_http_phase(smi, Path(tmp))
+        launches_smooth = smooth_parsing_phase(smi, Path(tmp))
+    launches_gate = release_gate_phase()
     launches_train = train_phase(smi, "bfloat16", steps=3)
     train_phase(smi, None, steps=2)
     train_f32_vs_cpu_phase()
@@ -1556,6 +2444,8 @@ def main():
     train_tiny_vs_cpu_phase()
     launches_cli = train_cli_phase()
     paths = {"serve": launches_serve, "style_engine": launches_style_engine,
+             "pipeline_options": launches_options, "serve_http": launches_http,
+             "smooth_parsing": launches_smooth, "release_gate": launches_gate,
              "train_step": launches_train, "pretrain_d_step": launches_pretrain_d,
              "pretrain_t_step": launches_t["pretrain_t"],
              "train_t_step": launches_t["train_t"], "train_cli": launches_cli}

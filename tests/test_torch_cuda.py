@@ -420,3 +420,88 @@ def test_train_steps_card_vs_cpu(dev, which):
     if which == "train_t":
         want.add("affine_warp")
     assert all(launched[k] > 0 for k in want), launched
+
+
+def test_pipeline_options_on_card(dev):
+    """packed_output and size bucketing on the card at the tiny
+    configuration: the packed output, unpacked on the host, bit-equal to the
+    unpacked pipeline's (bf16 and float32); the bucketed float32 output
+    (with and without a margin) the exact crop's shape and within 2 LSB max /
+    0.05 mean of the CPU's (float32 sums in another order, TF32 off)."""
+    from vtoonify_tpu_torch.models import bisenet, vtoonify
+    from vtoonify_tpu_torch.pipeline.toonify import ToonifyPipeline
+
+    g = torch.Generator().manual_seed(5)
+    cfg = vtoonify.VToonifyConfig(in_size=32, out_size=128, channel_multiplier=1,
+                                  num_res_layers=2)
+    vt, parsing = vtoonify.init_vtoonify(cfg, g), bisenet.init_bisenet(generator=g)
+    with torch.no_grad():
+        for blk in vt.generator.generator.to_rgbs:
+            blk.bias.normal_(0.0, 0.5, generator=g)
+    rng = np.random.RandomState(5)
+    s_w = (rng.randn(1, cfg.n_latent, 512) * 0.3).astype(np.float32)
+    frames = rng.randint(0, 256, (3, 40, 56, 3)).astype(np.uint8)
+    for dtype in (torch.bfloat16, torch.float32):
+        packed = ToonifyPipeline(vt, cfg, parsing, dtype=dtype, packed_output=True)
+        plain = ToonifyPipeline(vt, cfg, parsing, dtype=dtype)
+        got = packed.process_batch(frames, s_w, 0.5).cpu().numpy()
+        want = plain.process_batch(frames, s_w, 0.5).cpu().numpy()
+        assert got.shape == (3, 80, 112, 12) and want.shape == (3, 160, 224, 3)
+        assert want.std() > 10
+        for k in range(3):
+            np.testing.assert_array_equal(ToonifyPipeline.unpack_frame(got[k]), want[k])
+    crop = frames[:1, :36, :44]
+    for margin in (0, 8):
+        kw = dict(dtype=torch.float32, size_bucket=32, bucket_margin=margin)
+        card = ToonifyPipeline(vt, cfg, parsing, **kw).process_batch(crop, s_w, 0.5)
+        host = ToonifyPipeline(vt, cfg, parsing, device="cpu", **kw).process_batch(
+            crop, s_w, 0.5)
+        assert card.device.type == "cuda" and card.shape == host.shape == (1, 144, 176, 3)
+        d = (card.cpu().int() - host.int()).abs().float()
+        assert d.max().item() <= 2 and d.mean().item() <= 0.05, (margin, d.max(), d.mean())
+
+
+def test_raft_and_smoothing_card_vs_cpu(dev):
+    """RAFT at the raft-things widths (random weights, float32, TF32 off):
+    both lookups card vs CPU within 1e-5 relative L2; the smoother on a
+    4-frame 32 px video (window 1, 2 iterations) card vs CPU within 1e-4
+    relative L2 (float32 sums in another order), its B3 downsample
+    launched on the card; alt vs all-pairs on the card within JAX's bounds
+    (tests/test_raft.py: atol 1e-3 on the 1/8 flow, 1e-2 upsampled)."""
+    from vtoonify_tpu_torch.models import bisenet, raft
+    from vtoonify_tpu_torch.pipeline import smooth_parsing
+
+    rng = np.random.RandomState(6)
+    f1, f2 = (_rand(rng, 2, 32, 16, 24) for _ in range(2))
+    coords = (torch.from_numpy(rng.uniform(-6, 6, (2, 2, 16, 24)).astype(np.float32))
+              + torch.stack(torch.meshgrid(torch.arange(24.0), torch.arange(16.0),
+                                           indexing="xy"))[None])
+    for fn, args in ((lambda a, b, c: raft.lookup_corr(raft.build_corr_pyramid(a, b), c),
+                      (f1, f2, coords)),
+                     (lambda a, b, c: raft.lookup_corr_alt(a, raft.build_fmap_pyramid(b), c),
+                      (f1, f2, coords))):
+        host = fn(*args)
+        card = fn(*(a.to(dev) for a in args)).cpu()
+        assert ((card - host).norm() / host.norm()).item() <= 1e-5
+
+    g = torch.Generator().manual_seed(6)
+    model, parsing = raft.init_raft(raft.RAFTConfig(), g), bisenet.init_bisenet(generator=g)
+    base = rng.randint(0, 256, (40, 40, 3)).astype(np.uint8)
+    frames = np.stack([base[i:i + 32, 2 * i:2 * i + 32] for i in range(4)])
+    kernels.reset_launch_counts()
+    card = smooth_parsing.smooth_video_parsing_maps(model, parsing, frames, window=1, iters=2,
+                                                    tf32=False)
+    assert kernels.launch_counts()["upfirdn2d"] == 4
+    host = smooth_parsing.smooth_video_parsing_maps(model, parsing, frames, window=1,
+                                                    iters=2, device="cpu")
+    assert card.shape == (4, 32, 32, 19)
+    assert np.linalg.norm(card - host) / np.linalg.norm(host) <= 1e-4
+
+    m = model.to(dev)
+    im1 = torch.from_numpy(rng.randint(0, 256, (1, 3, 64, 96)).astype(np.float32)).to(dev)
+    im2 = torch.roll(im1, (2, -3), dims=(2, 3))
+    with torch.inference_mode():
+        lr_a, up_a = raft.raft_apply(m, im1, im2, raft.RAFTConfig(), iters=4)
+        lr_b, up_b = raft.raft_apply(m, im1, im2, raft.RAFTConfig(corr_impl="alt"), iters=4)
+    assert torch.allclose(lr_b, lr_a, atol=1e-3, rtol=1e-3)
+    assert torch.allclose(up_b, up_a, atol=1e-2, rtol=1e-3)

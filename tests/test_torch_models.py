@@ -175,10 +175,15 @@ def test_pipeline_surface(bisenet_pair):
     np.testing.assert_array_equal(via_parsing[0].numpy(), out)
     # style preparation is ported: tests/test_torch_checkpoint.py holds
     # compute_style and the exemplar style to JAX
+    # the pipeline options are ported (tests/test_torch_options.py holds
+    # them to JAX); only a device mesh is not
+    with pytest.raises(NotImplementedError):
+        T.ToonifyPipeline(p, cfg, bp, device="cpu", mesh=object())
     for option in ({"size_bucket": 32}, {"packed_output": True},
-                   {"mesh": object()}, {"bucket_margin": 8}):
-        with pytest.raises(NotImplementedError):
-            T.ToonifyPipeline(p, cfg, bp, device="cpu", **option)
+                   {"size_bucket": 32, "bucket_margin": 8}):
+        opt = T.ToonifyPipeline(p, cfg, bp, dtype=torch.float32, device="cpu",
+                                **option)
+        assert opt.process_image(frame, s_w, 0.5).shape == (128, 160, 3), option
 
 
 def test_load_jax_params_is_strict():

@@ -503,6 +503,14 @@ def test_port_imports_no_jax():
         "import vtoonify_tpu_torch.convert.torch_export\n"
         "import vtoonify_tpu_torch.cli.train_d\n"
         "import vtoonify_tpu_torch.cli.train_t\n"
+        "import vtoonify_tpu_torch.native\n"
+        "import vtoonify_tpu_torch.models.raft\n"
+        "import vtoonify_tpu_torch.models.raft_data\n"
+        "import vtoonify_tpu_torch.models.raft_viz\n"
+        "import vtoonify_tpu_torch.pipeline.smooth_parsing\n"
+        "import vtoonify_tpu_torch.cli.serve\n"
+        "import vtoonify_tpu_torch.cli.inference_playground\n"
+        "import vtoonify_tpu_torch.cli.validate_release\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'vtoonify_tpu.')))\n"
         "assert not bad, bad\n"

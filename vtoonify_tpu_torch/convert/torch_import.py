@@ -1,7 +1,8 @@
 """Reference PyTorch state dicts -> the JAX package's parameter layout, in
 numpy (port of vtoonify_tpu/convert/torch_import.py: `flatten_torch_state`,
 `convert_generator`, `convert_dualstylegan`, `convert_vtoonify`,
-`convert_bisenet`, `convert_psp_encoder`, `load_psp_standalone`).
+`convert_bisenet`, `convert_psp_encoder`, `load_psp_standalone`,
+`convert_raft`).
 
 The port's modules carry the JAX package's parameter names, so a reference
 checkpoint reaches them in two steps: these converters map the reference's
@@ -278,4 +279,52 @@ def convert_bisenet(sd, prefix=""):
         "conv_out": head(f"{p}conv_out"),
         "conv_out16": head(f"{p}conv_out16"),
         "conv_out32": head(f"{p}conv_out32"),
+    }
+
+
+# --- RAFT (reference model/raft/core) -----------------------------------------
+
+
+def convert_raft(sd, prefix=""):
+    """RAFT (basic) state dict -> params. Strips the 'module.' DataParallel
+    prefix of the released raft-things.pth."""
+    if any(k.startswith("module.") for k in sd):
+        sd = {k[len("module."):]: v for k, v in sd.items()}
+    p = prefix + "." if prefix else ""
+
+    def res_block(pre, batch_norm):
+        out = {"conv1": _conv(sd, f"{pre}.conv1"), "conv2": _conv(sd, f"{pre}.conv2")}
+        if f"{pre}.downsample.0.weight" in sd:
+            out["down"] = _conv(sd, f"{pre}.downsample.0")
+        if batch_norm:
+            norms = {"norm1": convert_batch_norm(sd, f"{pre}.norm1"),
+                     "norm2": convert_batch_norm(sd, f"{pre}.norm2")}
+            if f"{pre}.norm3.weight" in sd:
+                norms["norm3"] = convert_batch_norm(sd, f"{pre}.norm3")
+            out["norms"] = norms
+        return out
+
+    def encoder(pre, batch_norm):
+        out = {"conv1": _conv(sd, f"{pre}.conv1"), "conv2": _conv(sd, f"{pre}.conv2"),
+               "layers": [[res_block(f"{pre}.layer{li + 1}.0", batch_norm),
+                           res_block(f"{pre}.layer{li + 1}.1", batch_norm)]
+                          for li in range(3)]}
+        if batch_norm:
+            out["bn1"] = convert_batch_norm(sd, f"{pre}.norm1")
+        return out
+
+    ub = f"{p}update_block"
+    return {
+        "fnet": encoder(f"{p}fnet", batch_norm=False),
+        "cnet": encoder(f"{p}cnet", batch_norm=True),
+        "update": {
+            "enc": {k: _conv(sd, f"{ub}.encoder.{k}")
+                    for k in ("convc1", "convc2", "convf1", "convf2", "conv")},
+            "gru": {k: _conv(sd, f"{ub}.gru.{k}")
+                    for k in ("convz1", "convr1", "convq1", "convz2", "convr2", "convq2")},
+            "flow_head": {"conv1": _conv(sd, f"{ub}.flow_head.conv1"),
+                          "conv2": _conv(sd, f"{ub}.flow_head.conv2")},
+            "mask": {"conv1": _conv(sd, f"{ub}.mask.0"),
+                     "conv2": _conv(sd, f"{ub}.mask.2")},
+        },
     }

@@ -1,9 +1,9 @@
 """BiSeNet face parsing, 19 classes, ResNet-18 context path (port of
 vtoonify_tpu/models/bisenet.py: `init_bisenet`, `bisenet_apply`).
 
-NCHW; BatchNorms run in eval mode (the network is always frozen here). Only
-the main head is computed (the head consumers use); the two auxiliary
-heads' parameters are held so checkpoints load strictly.
+NCHW; BatchNorms run in eval mode (the network is always frozen here).
+`bisenet_apply` computes the main head (the one consumers use), or with
+heads=3 the two auxiliary heads too.
 """
 
 from __future__ import annotations
@@ -165,9 +165,12 @@ def init_bisenet(cfg: BiSeNetConfig = BiSeNetConfig(), generator=None) -> BiSeNe
     return BiSeNet(cfg, generator)
 
 
-def bisenet_apply(p: BiSeNet, x):
-    """(B, 3, H, W) normalized input -> 19-class logits at input resolution
-    (the main head, reference bisenet/model.py:241-254)."""
+def bisenet_apply(p: BiSeNet, x, heads: int = 1):
+    """(B, 3, H, W) normalized input -> 19-class logits at input resolution.
+
+    heads=1 returns only the main head (the one consumers use); heads=3
+    returns all three, (main, from feat16, from feat32) (reference
+    bisenet/model.py:241-254)."""
     h, w = x.shape[2:]
     feat8, feat16, feat32 = resnet18_apply(p.resnet, x)
 
@@ -181,5 +184,12 @@ def bisenet_apply(p: BiSeNet, x):
     feat16_up = conv_bn_relu(p.conv_head16, feat16_up)
 
     feat_fuse = ffm_apply(p.ffm, feat8, feat16_up)
-    out = output_head(p.conv_out, feat_fuse)
-    return resize_bilinear(out, (h, w), align_corners=True)
+    out = resize_bilinear(output_head(p.conv_out, feat_fuse), (h, w),
+                          align_corners=True)
+    if heads == 1:
+        return out
+    out16 = resize_bilinear(output_head(p.conv_out16, feat16_up), (h, w),
+                            align_corners=True)
+    out32 = resize_bilinear(output_head(p.conv_out32, feat32_up), (h, w),
+                            align_corners=True)
+    return out, out16, out32

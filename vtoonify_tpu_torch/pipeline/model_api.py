@@ -19,6 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from vtoonify_tpu_torch import resolve_device
 from vtoonify_tpu_torch.pipeline import crop as crop_mod
 from vtoonify_tpu_torch.pipeline.landmarks import make_landmarker
 from vtoonify_tpu_torch.pipeline.toonify import ToonifyPipeline
@@ -89,6 +90,7 @@ class Model:
     dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self):
+        resolve_device(self.device)  # no card and no device="cpu": raise now
         self._pipelines = {}
         path = self.landmark_model_path or os.path.join(
             self.checkpoint_root, "shape_predictor_68_face_landmarks.dat")

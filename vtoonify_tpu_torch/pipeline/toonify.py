@@ -1,15 +1,17 @@
 """The per-frame toonification graph + pipeline object (port of
 vtoonify_tpu/pipeline/toonify.py: `frame_graph`, `frame_graph_with_parsing`,
 `ToonifyPipeline` with `compute_style`, `process_batch`,
-`process_batch_with_parsing` / `process_image`).
+`process_batch_with_parsing` / `process_image`, `unpack_frame`, size
+bucketing and packed output).
 
 The public frame API keeps the JAX package's layout: uint8 (B, H, W, 3) in,
-uint8 (B, 4H, 4W, 3) out. Inside, activations are NCHW. Compute dtype is
-bfloat16 by default; the modules are cast once when the pipeline is built.
-Style preparation (pSp encoder, mapping MLP, exemplar splice) runs in
-float32 whatever the compute dtype. The pipeline runs on the card unless it
-is built with `device="cpu"`. Not ported yet: size bucketing, packed output
-and device meshes; asking for one raises NotImplementedError.
+uint8 (B, 4H, 4W, 3) out, or with `packed_output` (B, 2H, 2W, 12)
+phase-major, which `unpack_frame` finishes on the host. Inside, activations
+are NCHW. Compute dtype is bfloat16 by default; the modules are cast once
+when the pipeline is built. Style preparation (pSp encoder, mapping MLP,
+exemplar splice) runs in float32 whatever the compute dtype. The pipeline
+runs on the card unless it is built with `device="cpu"`. Not ported yet:
+device meshes (`mesh` raises NotImplementedError).
 """
 
 from __future__ import annotations
@@ -36,7 +38,20 @@ def _normalize(frames_u8, dtype):
     return frames_u8.permute(0, 3, 1, 2).to(dtype) / 127.5 - 1.0
 
 
-def _synthesize(vt, vt_cfg, x, x_p, s_w, d_s, dtype):
+def _to_bytes(out, packed):
+    """(B, 3, 4H, 4W) uint8 -> NHWC (B, 4H, 4W, 3), or with `packed` the
+    phase-major (B, 2H, 2W, 12) layout, out[b, 2i+a, 2j+c', ch] at channel
+    (2a+c')*3 + ch: one permutation of the bytes either way. (The JAX
+    package's packed synthesis stages are TPU layouts and are not ported;
+    the port is held to the bytes.)"""
+    if not packed:
+        return out.permute(0, 2, 3, 1).contiguous()
+    b, c, h, w = out.shape
+    return (out.view(b, c, h // 2, 2, w // 2, 2).permute(0, 2, 4, 3, 5, 1)
+            .reshape(b, h // 2, w // 2, 4 * c))
+
+
+def _synthesize(vt, vt_cfg, x, x_p, s_w, d_s, dtype, packed=False):
     inputs = torch.cat([x, x_p.to(dtype) * PARSING_WEIGHT], dim=1)
     # a batch-1 style (one style code per video) is NOT broadcast to the
     # frame batch: the modulated convs fold it into their kernels
@@ -47,12 +62,13 @@ def _synthesize(vt, vt_cfg, x, x_p, s_w, d_s, dtype):
     y = torch.clamp(y, -1.0, 1.0)
     # round half to even, in float32, as the JAX graph quantizes
     out = torch.round((y.float() + 1.0) * 127.5).to(torch.uint8)
-    return out.permute(0, 2, 3, 1).contiguous()
+    return _to_bytes(out, packed)
 
 
 def frame_graph(vt, vt_cfg: VToonifyConfig, parsing, frames_u8, s_w, d_s,
-                dtype=torch.bfloat16):
-    """uint8 frames (B, H, W, 3) -> stylized uint8 (B, 4H, 4W, 3).
+                dtype=torch.bfloat16, packed_out: bool = False):
+    """uint8 frames (B, H, W, 3) -> stylized uint8 (B, 4H, 4W, 3), or
+    (B, 2H, 2W, 12) phase-major with `packed_out`.
 
     reference style_transfer.py:165-177: BiSeNet on the 2x bilinear-upsampled
     frame (x2 gain), nearest x0.5 downsample of the logits, 1/16-weighted
@@ -62,14 +78,15 @@ def frame_graph(vt, vt_cfg: VToonifyConfig, parsing, frames_u8, s_w, d_s,
     x2 = resize_bilinear(x, (2 * h, 2 * w), align_corners=False)
     logits = bisenet_apply(parsing, 2.0 * x2)
     x_p = resize_nearest(logits, (h, w))
-    return _synthesize(vt, vt_cfg, x, x_p, s_w, d_s, dtype)
+    return _synthesize(vt, vt_cfg, x, x_p, s_w, d_s, dtype, packed_out)
 
 
 def frame_graph_with_parsing(vt, vt_cfg: VToonifyConfig, frames_u8, x_p, s_w,
-                             d_s, dtype=torch.bfloat16):
+                             d_s, dtype=torch.bfloat16, packed_out: bool = False):
     """frame_graph with precomputed parsing maps x_p (B, H, W, 19)."""
     x = _normalize(frames_u8, dtype)
-    return _synthesize(vt, vt_cfg, x, x_p.permute(0, 3, 1, 2), s_w, d_s, dtype)
+    return _synthesize(vt, vt_cfg, x, x_p.permute(0, 3, 1, 2), s_w, d_s, dtype,
+                       packed_out)
 
 
 class ToonifyPipeline:
@@ -81,6 +98,15 @@ class ToonifyPipeline:
     pSp encoder and the generator's mapping MLP (not the whole VToonify).
     Style codes are computed once per image/video (`compute_style`) and
     frozen; pass them to `process_batch` as (1, n_latent, 512).
+
+    size_bucket: round each frame's H and W up to a multiple of it with a
+    reflect pad on the host, and crop the output back. Not bit-exact:
+    BiSeNet's global pools and the fusion's instance norms see the padding.
+    bucket_margin (with size_bucket): reflect-pad this many more pixels on
+    every side first and crop them from the output too, which moves the
+    padding's halo out of the kept region. packed_output: `process_batch`
+    returns (B, 2H, 2W, 12) phase-major uint8; `unpack_frame` finishes it
+    (the video writer and `process_image` do so).
     """
 
     def __init__(self, vt, vt_cfg: VToonifyConfig, parsing, psp_params=None,
@@ -91,14 +117,12 @@ class ToonifyPipeline:
         """psp_params: a port `PSPEncoder`; latent_avg: its (n_styles, 512)
         mean code; exstyle: the exemplar's z+ code (1, n_latent, 512),
         before `zplus2wplus`."""
-        unported = {"mesh": mesh, "size_bucket": size_bucket,
-                    "packed_output": packed_output or None,
-                    "bucket_margin": bucket_margin or None}
-        asked = [k for k, v in unported.items() if v is not None]
-        if asked:
-            raise NotImplementedError(f"ToonifyPipeline: {', '.join(asked)} "
-                                      "not ported yet")
+        if mesh is not None:
+            raise NotImplementedError("ToonifyPipeline: mesh not ported yet")
         self.vt_cfg = vt_cfg
+        self.size_bucket = size_bucket
+        self.bucket_margin = bucket_margin
+        self.packed_output = packed_output
         self.dtype = dtype
         self.device = resolve_device(device)
         self.vt = copy.deepcopy(vt).to(self.device, dtype)
@@ -144,14 +168,42 @@ class ToonifyPipeline:
             s_w = torch.cat([self.exstyle_w[:, :7], s_w[:, 7:]], dim=1)
         return s_w
 
+    @staticmethod
+    def unpack_frame(packed_u8: np.ndarray, bgr: bool = False) -> np.ndarray:
+        """The host finish of packed_output: (2H, 2W, 12) uint8 phase-major
+        -> (4H, 4W, 3) RGB (or BGR for encoders), one native pass."""
+        from vtoonify_tpu_torch import native
+
+        return native.depth_to_space2_u8(np.asarray(packed_u8), bgr=bgr)
+
     def process_batch(self, frames_u8, s_w, d_s: float):
         """(B, H, W, 3) uint8 -> (B, 4H, 4W, 3) uint8 tensor on the device
-        (asynchronous, like the JAX device array). s_w: numpy or tensor."""
-        frames = torch.as_tensor(np.asarray(frames_u8), device=self.device)
+        (asynchronous, like the JAX device array), or (B, 2H, 2W, 12) with
+        packed_output. s_w: numpy or tensor."""
+        frames_u8 = np.asarray(frames_u8)
+        pad_h = pad_w = 0
+        mg = self.bucket_margin if self.size_bucket else 0
+        if self.size_bucket:
+            m = self.size_bucket
+            if mg:
+                frames_u8 = np.pad(frames_u8, ((0, 0), (mg, mg), (mg, mg), (0, 0)),
+                                   mode="reflect")
+            h, w = frames_u8.shape[1:3]
+            pad_h, pad_w = (-h) % m, (-w) % m
+            if pad_h or pad_w:
+                frames_u8 = np.pad(frames_u8, ((0, 0), (0, pad_h), (0, pad_w), (0, 0)),
+                                   mode="reflect")
+        frames = torch.as_tensor(frames_u8, device=self.device)
         s_w = torch.as_tensor(s_w, dtype=torch.float32, device=self.device)
         with torch.inference_mode():
-            return frame_graph(self.vt, self.vt_cfg, self.parsing, frames, s_w,
-                               float(d_s), self.dtype)
+            out = frame_graph(self.vt, self.vt_cfg, self.parsing, frames, s_w,
+                              float(d_s), self.dtype, self.packed_output)
+        if pad_h or pad_w or mg:
+            s = 2 if self.packed_output else 4  # a packed row covers 2 pixels
+            oh = out.shape[1] - s * (pad_h + mg)
+            ow = out.shape[2] - s * (pad_w + mg)
+            out = out[:, s * mg:oh, s * mg:ow]
+        return out
 
     def process_batch_with_parsing(self, frames_u8, x_p, s_w, d_s: float):
         """process_batch with precomputed parsing maps x_p (B, H, W, 19)."""
@@ -160,7 +212,11 @@ class ToonifyPipeline:
         s_w = torch.as_tensor(s_w, dtype=torch.float32, device=self.device)
         with torch.inference_mode():
             return frame_graph_with_parsing(self.vt, self.vt_cfg, frames, x_p,
-                                            s_w, float(d_s), self.dtype)
+                                            s_w, float(d_s), self.dtype,
+                                            self.packed_output)
 
     def process_image(self, frame_u8, s_w, d_s: float) -> np.ndarray:
-        return self.process_batch(np.asarray(frame_u8)[None], s_w, d_s)[0].cpu().numpy()
+        out = self.process_batch(np.asarray(frame_u8)[None], s_w, d_s)[0].cpu().numpy()
+        if self.packed_output:
+            out = self.unpack_frame(out)
+        return out

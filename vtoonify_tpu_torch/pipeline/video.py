@@ -5,7 +5,9 @@
 
 `toonify_frames` is the engine: it batches any iterable of (fps, RGB uint8
 frame) into `ToonifyPipeline.process_batch` calls and hands the stylized
-frames to any writer. `process_batch` returns its device tensor before the
+frames to any writer (packed frames from a `packed_output` pipeline, which
+the file writer finishes with `native.depth_to_space2_u8`). `process_batch`
+returns its device tensor before the
 card has finished, so up to `max_in_flight` batches are queued before the
 oldest is fetched (`.cpu()`, which waits for it): the host preprocesses
 the next batch while the card computes. `toonify_video` wraps the engine
@@ -25,6 +27,7 @@ from typing import Callable, Iterable, Optional
 
 import numpy as np
 
+from vtoonify_tpu_torch import native
 from vtoonify_tpu_torch.pipeline import crop as crop_mod
 
 
@@ -47,7 +50,7 @@ def iterate_video_frames(path: str):
             ok, frame = cap.read()
             if not ok:
                 break
-            yield fps, np.ascontiguousarray(frame[..., ::-1])
+            yield fps, native.rgb_to_bgr(frame)
     finally:
         cap.release()
 
@@ -115,10 +118,12 @@ class _PrefetchIterator:
 
 class _AsyncWriter:
     """cv2.VideoWriter fed with RGB frames from a bounded queue on a worker
-    thread (the BGR swap is a channel flip there)."""
+    thread, which swaps them to BGR (`native.rgb_to_bgr`); with `packed`,
+    frames are a packed_output pipeline's (2H, 2W, 12), finished there by
+    `native.depth_to_space2_u8` fused with the swap."""
 
     def __init__(self, path: str, fps: float, size_wh, maxsize: int = 8,
-                 timer=None):
+                 timer=None, packed: bool = False):
         import cv2
 
         self._writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"),
@@ -127,6 +132,7 @@ class _AsyncWriter:
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._count = 0
         self._timer = timer
+        self._packed = packed
         self._thread.start()
 
     def _run(self):
@@ -137,7 +143,8 @@ class _AsyncWriter:
             ctx = (self._timer.stage("encode") if self._timer is not None
                    else contextlib.nullcontext())
             with ctx:
-                self._writer.write(np.ascontiguousarray(item[..., ::-1]))
+                self._writer.write(native.depth_to_space2_u8(item, bgr=True)
+                                   if self._packed else native.rgb_to_bgr(item))
             self._count += 1
 
     def write(self, frame_rgb_u8: np.ndarray):
@@ -189,7 +196,8 @@ def toonify_frames(
     """Stylize a stream of (fps, RGB uint8 frame) (reference
     style_transfer.py video branch) into `open_writer(fps, (4W, 4H))`, a
     writer with `write(frame)` and `close() -> frames written`, opened at
-    the first frame; `open_crop_writer(fps, (W, H))` gets the crops.
+    the first frame; `open_crop_writer(fps, (W, H))` gets the crops. A
+    `packed_output` pipeline's frames reach the writer packed, (2H, 2W, 12).
 
     The first frame fixes the crop parameters and the style code for the
     whole stream (style_transfer.py:113-150). `s_w` may be passed directly
@@ -310,7 +318,9 @@ def toonify_video(
     try:
         return toonify_frames(
             pipeline, frame_iter,
-            lambda fps, size_wh: _AsyncWriter(out_path, fps, size_wh, timer=timer),
+            lambda fps, size_wh: _AsyncWriter(
+                out_path, fps, size_wh, timer=timer,
+                packed=pipeline.packed_output),
             style_degree=style_degree, color_transfer=color_transfer,
             landmarker=landmarker, scale_image=scale_image, padding=padding,
             batch_size=batch_size, max_in_flight=max_in_flight,

@@ -2,13 +2,14 @@
 vtoonify_tpu/utils/checkpoint.py: `infer_vtoonify_config`,
 `load_reference_vtoonify`, `load_reference_dualstylegan`,
 `load_reference_stylegan`, `load_reference_faceparsing`,
-`load_reference_psp`, `load_exstyle_bank`, `load_directions`,
+`load_reference_psp`, `load_reference_raft`, `load_exstyle_bank`,
+`load_directions`,
 `save_train_state` / `load_train_state`, and the trainers' g_ema files in
 place of its Orbax `save_pytree` / `load_pytree`).
 
 Each loader reads a released PyTorch artifact (vtoonify_*.pt,
 generator.pt, encoder.pt, faceparsing.pth, exstyle_code.npy,
-directions.npy), maps its keys with `convert/torch_import.py` and loads the
+directions.npy, raft-things.pth), maps its keys with `convert/torch_import.py` and loads the
 result strictly (`convert/from_jax.py::load_jax_params`: every parameter
 and buffer set, every converted leaf used) into a module built on the CPU.
 Move it to the card with `.to("cuda")` or through `ToonifyPipeline`.
@@ -35,6 +36,7 @@ from vtoonify_tpu_torch.models.bisenet import init_bisenet
 from vtoonify_tpu_torch.models.dualstylegan import init_dualstylegan
 from vtoonify_tpu_torch.models.generator import init_generator
 from vtoonify_tpu_torch.models.psp_encoder import PSPEncoderConfig, init_psp_encoder
+from vtoonify_tpu_torch.models.raft import RAFTConfig, init_raft
 from vtoonify_tpu_torch.models.vtoonify import VToonifyConfig, init_vtoonify
 
 
@@ -141,6 +143,13 @@ def load_reference_psp(path: str, cfg=None):
         {"state_dict": sd, "latent_avg": np.asarray(ckpt["latent_avg"])}, cfg)
     psp = load_jax_params(init_psp_encoder(cfg, _init_generator()), params)
     return psp, torch.from_numpy(latent_avg), cfg
+
+
+def load_reference_raft(path: str, cfg=RAFTConfig()):
+    """raft-things.pth (a bare state dict, keys with or without the
+    'module.' prefix) -> RAFT."""
+    sd = TI.flatten_torch_state(_torch_load(path))
+    return load_jax_params(init_raft(cfg, _init_generator()), TI.convert_raft(sd))
 
 
 def load_exstyle_bank(path: str):
