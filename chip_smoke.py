@@ -8,6 +8,7 @@
                                     # (D stage 2, D stage 1, T stage 2)
     python3 chip_smoke.py --apps    # pipeline options, the HTTP server,
                                     # smoothing and the release gate alone
+    python3 chip_smoke.py --raft    # RAFT training and evaluation alone
 
 Builds the port's five hand-written kernels from vtoonify_tpu_torch/csrc
 with nvcc (sm_90a, one nvcc per source, in parallel), checks each against its
@@ -58,7 +59,16 @@ with random weights from a seeded torch.Generator:
   the card against the CPU;
 * train_cli: both trainer CLIs (cli/train_d.py, cli/train_t.py), both
   stages at --tiny on reference-format random files, with --export_pt and
-  --resume; the exported checkpoints load in the pipeline and toonify.
+  --resume; the exported checkpoints load in the pipeline and toonify;
+* raft_train: RAFT training at the raft-things widths (models/raft_train.py):
+  one step of both BN modes and both correlations on the card against the
+  CPU and alt against all-pairs (TF32 off); upstream RAFT's train_standard.sh
+  recipes timed and profiled on device-resident synthetic data (chairs:
+  batch 10, 368 x 496, BN trained; things: batch 6, 400 x 720, BN frozen, in
+  TF32 and under bf16 autocast); the trainer command over synthetic
+  FlyingChairs / FlyingThings3D / Sintel trees (chairs, then things from its
+  .ckpt) and the eval command (Sintel validation, a warm-started
+  submission). RAFT launches none of the five kernels.
 
 Each phase prints one JSON object on a line of its own with its wall
 seconds; the line before the last holds the per-kernel summary, and the last
@@ -138,6 +148,29 @@ SMOOTH_REL_L2 = 1e-3
 SMOOTH_TF32_FRAME, SMOOTH_TF32_REL_L2 = 8, 2e-3
 # release_gate: two release cases (D and T) at the trainer's --tiny widths
 GATE_CASES = ["077436_vtoonify_d", "038648_vtoonify_t"]
+# raft_train: RAFT at the raft-things widths. Gates (TF32 off): one step at
+# (2, 3, 48, 64), 2 iterations, card vs CPU and alt vs all-pairs on the card:
+# loss and EPE within 1e-4 relative, the accuracies within one pixel's share,
+# the clipped gradients within 1e-2 relative L2 (at these 6 x 8 feature maps
+# a few ReLU inputs sit within float32 rounding of zero, and each one that
+# flips moves the gradient of whole tensors), the new params within 1e-4;
+# AdamW's first update (about +-lr an element) within 2 lr everywhere and,
+# on each tensor's elements whose |g| is above 1e-3 of its largest and 100
+# eps (where |g| sits at the rounding noise its sign may differ; at least 5%
+# of all), all but 0.1% of them within 0.02 lr and all but 1% within 1e-3 lr
+# (a flipped ReLU can change single elements' gradients wholly); trained BN
+# buffers within 1e-4, frozen ones unchanged. Timed: upstream RAFT's
+# train_standard.sh recipes (name, batch, image size, BN trained, bf16
+# autocast, lr, wdecay), 12 iterations; the CLIs over synthetic trees for
+# RAFT_CLI_STEPS steps each
+RAFT_GATE_SHAPE = (2, 48, 64)
+RAFT_GATE_RTOL, RAFT_GATE_GRAD_REL_L2 = 1e-4, 1e-2
+RAFT_GATE_PARAMS_REL_L2, RAFT_GATE_BN_ATOL = 1e-4, 1e-4
+RAFT_ITERS, RAFT_TIMED_STEPS = 12, 5
+RAFT_RECIPES = [("chairs", 10, (368, 496), True, False, 4e-4, 1e-4),
+                ("things", 6, (400, 720), False, False, 1.25e-4, 1e-4),
+                ("things_bf16", 6, (400, 720), False, True, 1.25e-4, 1e-4)]
+RAFT_CLI_CHAIRS, RAFT_CLI_STEPS = 24, 4
 TINY_VT = dict(in_size=32, out_size=128, channel_multiplier=1, num_res_layers=2)
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM (data sheet)
@@ -2366,6 +2399,327 @@ def train_cli_phase():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# raft_train: RAFT training and evaluation (models/raft_train.py, raft_eval.py)
+
+
+def _raft_gate_inputs():
+    rng = np.random.RandomState(SEED + 20)
+    b, h, w = RAFT_GATE_SHAPE
+    return (torch.from_numpy((rng.rand(b, 3, h, w) * 255).astype(np.float32)),
+            torch.from_numpy((rng.rand(b, 3, h, w) * 255).astype(np.float32)),
+            torch.from_numpy((rng.randn(b, 2, h, w) * 3).astype(np.float32)),
+            torch.from_numpy((rng.rand(b, h, w) > 0.2).astype(np.float32)))
+
+
+def _raft_steps_agree(a, b, before, lr, n_valid, bn_trained, name):
+    """Two RAFT train steps from the same params and inputs, held as
+    tests/test_torch_cuda.py::_raft_steps_agree holds them (RAFT_GATE_*
+    above); returns the measured errors."""
+    (am, ap, ag), (bm, bp, bg) = a, b
+    out = {}
+    for k in ("loss", "epe"):
+        out[f"{k}_rel_err"] = abs(am[k] - bm[k]) / max(abs(bm[k]), 1e-12)
+        check(out[f"{k}_rel_err"] <= RAFT_GATE_RTOL, f"{name}: {k} {am[k]} vs {bm[k]}")
+    for k in ("1px", "3px", "5px"):
+        out[f"{k}_abs_err"] = abs(am[k] - bm[k])
+        check(out[f"{k}_abs_err"] <= 1.0 / n_valid + 1e-7, f"{name}: {k} {am[k]} vs {bm[k]}")
+
+    def rel(x, y, keys):
+        return (sum(((x[k] - y[k]) ** 2).sum() for k in keys)
+                / sum((y[k] ** 2).sum() for k in keys)).sqrt().item()
+
+    out["grad_rel_l2"] = rel(ag, bg, list(bg))
+    out["params_rel_l2"] = rel(ap, bp, list(bg))
+    check(out["grad_rel_l2"] <= RAFT_GATE_GRAD_REL_L2
+          and out["params_rel_l2"] <= RAFT_GATE_PARAMS_REL_L2, f"{name}: {out}")
+    worst = worst_masked = 0.0
+    covered = total = over_2e2 = over_1e3 = 0
+    for k, g in bg.items():
+        err = (ap[k] - bp[k]).abs()
+        worst = max(worst, err.max().item() / lr)
+        mask = (g.abs() > 1e-3 * g.abs().max()) & (g.abs() > 1e-6)
+        covered, total = covered + int(mask.sum()), total + mask.numel()
+        if mask.any():
+            worst_masked = max(worst_masked, err[mask].max().item() / lr)
+            over_2e2 += int((err[mask] > 0.02 * lr).sum())
+            over_1e3 += int((err[mask] > 1e-3 * lr).sum())
+    frac_2e2, frac_1e3 = over_2e2 / max(covered, 1), over_1e3 / max(covered, 1)
+    out.update({"update_max_err_over_lr": worst,
+                "masked_update_max_err_over_lr": worst_masked,
+                "masked_frac_over_0.02_lr": frac_2e2,
+                "masked_frac_over_1e-3_lr": frac_1e3, "mask_coverage": covered / total})
+    check(worst <= 2 + 1e-3 and frac_2e2 <= 1e-3 and frac_1e3 <= 1e-2
+          and covered > 0.05 * total, f"{name}: AdamW updates disagree: {out}")
+    bn = [k for k in bp if "running" in k]
+    if bn_trained:
+        out["bn_max_abs_err"] = max((ap[k] - bp[k]).abs().max().item() for k in bn)
+        check(out["bn_max_abs_err"] <= RAFT_GATE_BN_ATOL, f"{name}: BN buffers {out}")
+    else:
+        check(all(torch.equal(ap[k], before[k]) and torch.equal(bp[k], before[k])
+                  for k in bn), f"{name}: frozen BN buffers moved")
+    return out
+
+
+def raft_train_gates():
+    """One raft_train_step at RAFT_GATE_SHAPE, 2 iterations, noise and a
+    clip that binds, both BN modes and both correlations, card against CPU
+    from the same params and draws (TF32 off, as main sets it); and the alt
+    step against the all-pairs step on the card."""
+    from vtoonify_tpu_torch.models import raft as R
+    from vtoonify_tpu_torch.models import raft_train as RT
+    from vtoonify_tpu_torch.ops import kernels as K
+
+    model = R.init_raft(R.RAFTConfig(), torch.Generator().manual_seed(SEED + 20))
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    inputs = _raft_gate_inputs()
+    draws = RT.sample_raft_train_draws(torch.Generator().manual_seed(SEED + 21),
+                                       inputs[0].shape)
+    n_valid = inputs[3].sum().item()
+    rec = {"shape": list(inputs[0].shape), "iters": 2, "clip": 0.5, "tf32": False}
+    for train_bn in (False, True):
+        tcfg = RT.RaftTrainConfig(lr=1e-4, num_steps=10, iters=2, add_noise=True, clip=0.5,
+                                  train_bn=train_bn)
+        out = {}
+        for impl in ("allpairs", "alt"):
+            for where in ("cpu", "cuda"):
+                state = RT.init_raft_train_state(copy.deepcopy(model), tcfg, device=where)
+                K.reset_launch_counts()
+                m = RT.raft_train_step(state, *inputs, R.RAFTConfig(corr_impl=impl), tcfg,
+                                       draws=draws)
+                check(not any(K.launch_counts().values()),
+                      f"the RAFT step launched a kernel: {K.launch_counts()}")
+                out[impl, where] = ({k: float(v) for k, v in m.items()},
+                                    {k: v.cpu() for k, v in state.model.state_dict().items()},
+                                    {k: p.grad.cpu() for k, p in state.model.named_parameters()})
+        bn = "train_bn" if train_bn else "frozen_bn"
+        for a, b in ((("allpairs", "cuda"), ("allpairs", "cpu")), (("alt", "cuda"), ("alt", "cpu")),
+                     (("alt", "cuda"), ("allpairs", "cuda"))):
+            name = f"{bn}_{a[0]}_{a[1]}_vs_{b[0]}_{b[1]}"
+            rec[name] = _raft_steps_agree(out[a], out[b], before, tcfg.lr, n_valid,
+                                          train_bn, name)
+        rec[f"{bn}_card_metrics"] = out["allpairs", "cuda"][0]
+    return rec
+
+
+def _raft_batch(batch, hw, g):
+    """Device-resident synthetic frames (smooth, in [0, 255]), flow and a
+    full valid mask."""
+    h, w = hw
+    img = F.interpolate(torch.rand((batch, 3, h // 16, w // 16), generator=g, device="cuda"),
+                        size=(h, w), mode="bilinear", align_corners=False) * 255
+    img2 = torch.roll(img, (2, -3), dims=(2, 3))
+    flow = F.interpolate(torch.randn((batch, 2, h // 32, w // 32), generator=g, device="cuda"),
+                         size=(h, w), mode="bilinear", align_corners=False) * 8
+    return img, img2, flow, torch.ones((batch, h, w), device="cuda")
+
+
+def raft_step_flops(batch, hw):
+    """The FLOPs of one RAFT train step's forward and backward at
+    RAFT_ITERS iterations: convolutions and matmuls, counted from shapes by
+    torch.utils.flop_counter on meta tensors (nothing runs)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from vtoonify_tpu_torch.models import raft as R
+    from vtoonify_tpu_torch.models import raft_train as RT
+    from vtoonify_tpu_torch.nn.layers import set_trainable
+
+    model = set_trainable(R.init_raft(R.RAFTConfig(), torch.Generator().manual_seed(0))
+                          .to("meta"))
+    img = torch.zeros((batch, 3, *hw), device="meta")
+    with FlopCounterMode(display=False) as fc:
+        preds = R.raft_apply(model, img, img, R.RAFTConfig(), iters=RAFT_ITERS,
+                             test_mode=False, train_bn=True)
+        RT.sequence_loss(preds, torch.zeros((batch, 2, *hw), device="meta"),
+                         torch.ones((batch, *hw), device="meta"))[0].backward()
+    return fc.get_total_flops()
+
+
+def raft_timed(smi, name, batch, hw, train_bn, mixed, lr, wdecay):
+    """One recipe of upstream RAFT's train_standard.sh on the card in the
+    trainer's precision (TF32; bf16 autocast with mixed): 1 warm-up step,
+    RAFT_TIMED_STEPS timed, 1 profiled."""
+    from vtoonify_tpu_torch.models import raft as R
+    from vtoonify_tpu_torch.models import raft_train as RT
+
+    model = R.init_raft(R.RAFTConfig(), torch.Generator().manual_seed(SEED + 22))
+    tcfg = RT.RaftTrainConfig(lr=lr, wdecay=wdecay, num_steps=100000, iters=RAFT_ITERS,
+                              train_bn=train_bn, mixed_precision=mixed)
+    state = RT.init_raft_train_state(model, tcfg)
+    data = _raft_batch(batch, hw, torch.Generator("cuda").manual_seed(SEED + 23))
+    cfg = R.RAFTConfig()
+    rec, launches = _timed_steps(lambda: RT.raft_train_step(state, *data, cfg, tcfg),
+                                 RAFT_TIMED_STEPS, (), f"raft_train_{name}_profile.txt")
+    flops = raft_step_flops(batch, hw)
+    rec.update(recipe=name, batch=batch, image_size=list(hw), iters=RAFT_ITERS,
+               train_bn=train_bn, precision="bf16 autocast" if mixed else "tf32",
+               lr=lr, wdecay=wdecay, nvidia_smi=smi, step_tflop=flops / 1e12,
+               achieved_tflops=flops / rec["p50_s_per_iter"] / 1e12)
+    del state, data, model
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def _write_pfm(path, data):
+    h, w = data.shape[:2]
+    with open(path, "wb") as f:
+        f.write(f"PF\n{w} {h}\n-1.0\n".encode())
+        f.write(np.flipud(data).astype("<f4").tobytes())
+
+
+def write_flow_trees(root, seed):
+    """Synthetic trees in the trainer's --data_root layout, at the datasets'
+    frame sizes: FlyingChairs (384 x 512 .ppm pairs, .flo, a split file:
+    RAFT_CLI_CHAIRS pairs, the last 4 for validation), FlyingThings3D (540 x
+    960 .png, 3-channel .pfm flow, one sequence of 4 frames, both passes and
+    directions: 12 pairs) and Sintel (436 x 1024 .png, two scenes of 3
+    frames: training with .flo flow, test clean and final)."""
+    import os
+
+    import cv2
+
+    from vtoonify_tpu_torch.models import raft_data as RD
+
+    rng = np.random.RandomState(seed)
+
+    def img(path, h, w):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        small = rng.randint(0, 256, (h // 16, w // 16, 3)).astype(np.uint8)
+        cv2.imwrite(path, cv2.resize(small, (w, h), interpolation=cv2.INTER_LINEAR))
+
+    def flow(h, w):
+        return cv2.resize((rng.randn(h // 32, w // 32, 2) * 8).astype(np.float32), (w, h))
+
+    chairs = os.path.join(root, "FlyingChairs_release", "data")
+    for i in range(1, RAFT_CLI_CHAIRS + 1):
+        for t in (1, 2):
+            img(os.path.join(chairs, f"{i:05d}_img{t}.ppm"), 384, 512)
+        RD.write_flo(os.path.join(chairs, f"{i:05d}_flow.flo"), flow(384, 512))
+    with open(os.path.join(root, "chairs_split.txt"), "w") as f:
+        f.write("1\n" * (RAFT_CLI_CHAIRS - 4) + "2\n" * 4)
+    things = os.path.join(root, "FlyingThings3D")
+    for i in range(4):
+        for dstype in ("frames_cleanpass", "frames_finalpass"):
+            img(os.path.join(things, dstype, "TRAIN", "A", "0000", "left", f"{i:04d}.png"),
+                540, 960)
+        for direction in ("into_future", "into_past"):
+            d = os.path.join(things, "optical_flow", "TRAIN", "A", "0000", direction, "left")
+            os.makedirs(d, exist_ok=True)
+            _write_pfm(os.path.join(d, f"OpticalFlowInto{i:04d}.pfm"),
+                       np.concatenate([flow(540, 960), np.zeros((540, 960, 1), np.float32)],
+                                      axis=-1))
+    for scene in ("alley_1", "cave_2"):
+        for i in (1, 2, 3):
+            img(os.path.join(root, "Sintel", "training", "clean", scene, f"frame_{i:04d}.png"),
+                436, 1024)
+            for dstype in ("clean", "final"):
+                img(os.path.join(root, "Sintel", "test", dstype, scene, f"frame_{i:04d}.png"),
+                    436, 1024)
+        d = os.path.join(root, "Sintel", "training", "flow", scene)
+        os.makedirs(d, exist_ok=True)
+        for i in (1, 2):
+            RD.write_flo(os.path.join(d, f"frame_{i:04d}.flo"), flow(436, 1024))
+
+
+def raft_cli(root):
+    """The trainer command on the card over the synthetic trees in `root`,
+    at the chairs and things recipes: RAFT_CLI_STEPS steps of --stage chairs
+    --validation chairs, its .ckpt restored into --stage things --validation
+    sintel; then the eval command on a reference-format .pth of the result:
+    the Sintel validation, and a Sintel submission with --warm_start. The
+    CLI's s/it (host augmentation included; the first step left out)."""
+    import contextlib
+    import glob
+    import io
+    import os
+
+    from vtoonify_tpu_torch.models import raft as R
+    from vtoonify_tpu_torch.models import raft_data as RD
+    from vtoonify_tpu_torch.models import raft_eval as RE
+    from vtoonify_tpu_torch.models import raft_train as RT
+
+    rec, out_dir = {}, OUT_DIR.resolve()  # the commands run inside `root`
+    common = ["--data_root", root, "--num_steps", str(RAFT_CLI_STEPS),
+              "--val_freq", str(RAFT_CLI_STEPS), "--iters", str(RAFT_ITERS)]
+    stages = (("chairs", ["--stage", "chairs", "--validation", "chairs", "--name", "raft-chairs",
+                          "--batch_size", "10", "--image_size", "368", "496", "--lr", "0.0004",
+                          "--wdecay", "0.0001"]),
+              ("things", ["--stage", "things", "--validation", "sintel", "--name", "raft-things",
+                          "--restore_ckpt", "checkpoints/raft-chairs.ckpt", "--batch_size", "6",
+                          "--image_size", "400", "720", "--lr", "0.000125",
+                          "--wdecay", "0.0001"]))
+    with contextlib.chdir(root):
+        for name, argv in stages:
+            buf = io.StringIO()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                out = RT.main(argv + common)
+            text = buf.getvalue()
+            (out_dir / f"raft_cli_{name}.txt").write_text(text)
+            steps = out["step_seconds"][1:]
+            rec[name] = {"argv": " ".join(argv), "seconds": time.perf_counter() - t1,
+                         "s_per_it": steps, "p50_s_per_it": float(np.median(steps)),
+                         "stdout_tail": text.strip().splitlines()[-3:]}
+            check(os.path.exists(out["checkpoint"]) and "epe" in text,
+                  f"the {name} trainer wrote no checkpoint or validation: {text[-500:]}")
+        model = R.init_raft(R.RAFTConfig(), torch.Generator().manual_seed(0))
+        model.load_state_dict(torch.load("checkpoints/raft-things.ckpt", weights_only=True))
+        torch.save(raft_reference_state(model), "raft-things.pth")
+        common = ["--model", "raft-things.pth", "--dataset", "sintel", "--data_root", root]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            t1 = time.perf_counter()
+            metrics = RE.main(common)
+            rec["eval_sintel"] = {**metrics, "seconds": time.perf_counter() - t1}
+            t1 = time.perf_counter()
+            sub = RE.main(common + ["--submission", "submission", "--warm_start"])
+            rec["submission"] = {**sub, "seconds": time.perf_counter() - t1}
+        files = sorted(glob.glob("submission/*/*/*.flo"))
+        check(set(metrics) == {"epe", "1px", "3px", "5px"}
+              and all(np.isfinite(v) for v in metrics.values()), f"eval: {metrics}")
+        check(sub == {"files": 8} and len(files) == 8
+              and all(np.isfinite(RD.read_flo(f)).all() and RD.read_flo(f).shape == (436, 1024, 2)
+                      for f in files), f"submission: {sub}, {files}")
+    return rec
+
+
+def raft_train_phase(smi):
+    """RAFT training at the raft-things widths: the gates (TF32 off), the
+    train_standard.sh recipes timed and profiled in the trainer's precision
+    (TF32, and bf16 autocast), and the trainer and eval commands over
+    synthetic dataset trees. Returns the launches of B1-B5 over the timed
+    steps (all 0: RAFT runs none of them)."""
+    from vtoonify_tpu_torch.ops import kernels as K
+    from vtoonify_tpu_torch.pipeline.smooth_parsing import float32_precision
+
+    t0 = time.perf_counter()
+    rec = {"phase": "raft_train", "raft": "RAFTConfig() (raft-things widths)",
+           "nvidia_smi": smi, "gates": raft_train_gates()}
+    rec["gates_seconds"] = time.perf_counter() - t0
+    launches = collections.Counter()
+    with float32_precision(True):
+        for recipe in RAFT_RECIPES:
+            r, per_step = raft_timed(smi, *recipe)
+            rec[recipe[0]] = r
+            launches.update(per_step)
+            launches.update(K.launch_counts())  # the last timed and the profiled step
+        with tempfile.TemporaryDirectory() as tmp:
+            t1 = time.perf_counter()
+            write_flow_trees(tmp, SEED + 24)
+            rec["trees_seconds"] = time.perf_counter() - t1
+            rec["cli"] = raft_cli(tmp)
+    for name in ("chairs", "things"):
+        rec["cli"][name]["bare_step_p50_s"] = rec[name]["p50_s_per_iter"]
+        rec["cli"][name]["host_share"] = 1 - (rec[name]["p50_s_per_iter"]
+                                              / rec["cli"][name]["p50_s_per_it"])
+    check(not any(launches.values()), f"the RAFT train step launched B1-B5: {launches}")
+    rec["launches"] = dict(launches)
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    torch.cuda.empty_cache()
+    return dict(launches)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2423,8 +2777,12 @@ def main():
             smooth_parsing_phase(smi, Path(tmp))
         release_gate_phase()
         return
+    if sys.argv[1:] == ["--raft"]:
+        # RAFT training and evaluation alone; no result line
+        raft_train_phase(smi)
+        return
     check(len(sys.argv) == 1,
-          "usage: chip_smoke.py [--kernels NAME[,NAME...] | --paths | --apps]")
+          "usage: chip_smoke.py [--kernels NAME[,NAME...] | --paths | --apps | --raft]")
     summary = kernel_phase(dev)
     launches_serve = serve_phases(smi)
     launches_style_engine = style_engine_phase(smi)
@@ -2443,12 +2801,14 @@ def main():
     launches_t = train_t_phase(smi)
     train_tiny_vs_cpu_phase()
     launches_cli = train_cli_phase()
+    launches_raft = raft_train_phase(smi)
     paths = {"serve": launches_serve, "style_engine": launches_style_engine,
              "pipeline_options": launches_options, "serve_http": launches_http,
              "smooth_parsing": launches_smooth, "release_gate": launches_gate,
              "train_step": launches_train, "pretrain_d_step": launches_pretrain_d,
              "pretrain_t_step": launches_t["pretrain_t"],
-             "train_t_step": launches_t["train_t"], "train_cli": launches_cli}
+             "train_t_step": launches_t["train_t"], "train_cli": launches_cli,
+             "raft_train_step": launches_raft}
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [

@@ -505,3 +505,85 @@ def test_raft_and_smoothing_card_vs_cpu(dev):
         lr_b, up_b = raft.raft_apply(m, im1, im2, raft.RAFTConfig(corr_impl="alt"), iters=4)
     assert torch.allclose(lr_b, lr_a, atol=1e-3, rtol=1e-3)
     assert torch.allclose(up_b, up_a, atol=1e-2, rtol=1e-3)
+
+
+def _raft_steps_agree(a, b, before, lr, n_valid, bn_trained):
+    """Two RAFT train steps from the same params and inputs: loss and EPE
+    within 1e-4 relative, the 1/3/5 px accuracies within one pixel's share,
+    the clipped gradients within 1e-2 relative L2 (at these 6 x 8 feature
+    maps a few ReLU inputs sit within float32 rounding of zero, and each
+    one that flips moves the gradient of whole tensors), the new params
+    within 1e-4 relative L2; AdamW's first update (about +-lr an element) within 2 lr
+    everywhere and, on each tensor's elements whose |g| is above 1e-3 of its
+    largest and above 100 eps (where |g| sits at the rounding noise its sign
+    may differ; at least 5% of all), all but 0.1% of them within 0.02 lr and
+    all but 1% within 1e-3 lr (a flipped ReLU can change single elements'
+    gradients wholly); trained
+    BN buffers within 1e-4, frozen ones unchanged."""
+    (am, ap, ag), (bm, bp, bg) = a, b
+    for k in ("loss", "epe"):
+        assert am[k] == pytest.approx(bm[k], rel=1e-4), k
+    for k in ("1px", "3px", "5px"):
+        assert abs(am[k] - bm[k]) <= 1.0 / n_valid + 1e-7, k
+
+    def rel(x, y, keys):
+        return (sum(((x[k] - y[k]) ** 2).sum() for k in keys)
+                / sum((y[k] ** 2).sum() for k in keys)).sqrt().item()
+
+    assert rel(ag, bg, list(bg)) <= 1e-2
+    assert rel(ap, bp, list(bg)) <= 1e-4
+    masked = over_2e2 = over_1e3 = 0
+    for k, g in bg.items():
+        err = (ap[k] - bp[k]).abs()
+        assert err.max().item() <= 2 * lr + 1e-7, k
+        mask = (g.abs() > 1e-3 * g.abs().max()) & (g.abs() > 1e-6)
+        masked += int(mask.sum())
+        over_2e2 += int((err[mask] > 0.02 * lr).sum())
+        over_1e3 += int((err[mask] > 1e-3 * lr).sum())
+    assert masked > 0.05 * sum(g.numel() for g in bg.values())
+    assert over_2e2 <= 1e-3 * masked and over_1e3 <= 1e-2 * masked, (over_2e2, over_1e3, masked)
+    for k in bp:
+        if "running" in k:
+            if bn_trained:
+                assert torch.allclose(ap[k], bp[k], atol=1e-4, rtol=0), k
+            else:
+                assert torch.equal(ap[k], before[k]) and torch.equal(bp[k], before[k]), k
+
+
+@pytest.mark.parametrize("train_bn", [False, True])
+def test_raft_train_step_card_vs_cpu(dev, train_bn):
+    """One RAFT train step (raft-things widths, (2, 3, 48, 64), 2 iterations,
+    noise, a clip that binds) on the card against the CPU from the same
+    params and draws, float32 with TF32 off, with both correlations; and
+    the alt step against the all-pairs one on the card (`_raft_steps_agree`).
+    No B1-B5 launch."""
+    import copy
+
+    from vtoonify_tpu_torch.models import raft, raft_train
+
+    rng = np.random.RandomState(9)
+    model = raft.init_raft(raft.RAFTConfig(), torch.Generator().manual_seed(9))
+    tcfg = raft_train.RaftTrainConfig(lr=1e-4, num_steps=10, iters=2, add_noise=True,
+                                      clip=0.5, train_bn=train_bn)
+    inputs = (torch.from_numpy((rng.rand(2, 3, 48, 64) * 255).astype(np.float32)),
+              torch.from_numpy((rng.rand(2, 3, 48, 64) * 255).astype(np.float32)),
+              _rand(rng, 2, 2, 48, 64, scale=3.0),
+              torch.from_numpy((rng.rand(2, 48, 64) > 0.2).astype(np.float32)))
+    draws = raft_train.sample_raft_train_draws(torch.Generator().manual_seed(10),
+                                               inputs[0].shape)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    out = {}
+    for impl in ("allpairs", "alt"):
+        for where in ("cpu", "cuda"):
+            state = raft_train.init_raft_train_state(copy.deepcopy(model), tcfg, device=where)
+            kernels.reset_launch_counts()
+            m = raft_train.raft_train_step(state, *inputs, raft.RAFTConfig(corr_impl=impl),
+                                           tcfg, draws=draws)
+            assert not any(kernels.launch_counts().values())
+            out[impl, where] = ({k: float(v) for k, v in m.items()},
+                                {k: v.cpu() for k, v in state.model.state_dict().items()},
+                                {k: p.grad.cpu() for k, p in state.model.named_parameters()})
+    n_valid = inputs[3].sum().item()
+    for a, b in ((("allpairs", "cuda"), ("allpairs", "cpu")), (("alt", "cuda"), ("alt", "cpu")),
+                 (("alt", "cuda"), ("allpairs", "cuda"))):
+        _raft_steps_agree(out[a], out[b], before, tcfg.lr, n_valid, train_bn)

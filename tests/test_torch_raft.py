@@ -156,11 +156,9 @@ def test_raft_alt_matches_allpairs(raft_pair):
     np.testing.assert_allclose(up_b.numpy(), up_a.numpy(), atol=1e-2, rtol=1e-3)
 
 
-def test_raft_refuses_what_is_not_ported(raft_pair):
+def test_raft_refuses_an_unknown_corr_impl(raft_pair):
     _, m = raft_pair
     x = torch.zeros((1, 3, 32, 32))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        R.raft_apply(m, x, x, iters=1, test_mode=False, train_bn=True)
     with pytest.raises(ValueError, match="corr_impl"):
         R.raft_apply(m, x, x, R.RAFTConfig(corr_impl="cuda"), iters=1)
 

@@ -16,8 +16,9 @@ avg-pool pyramid and bilinear lookups) and "alt" (the reference's
 alt_cuda_corr: each lookup window is correlated on the fly against a
 feature pyramid of image 2, exact by linearity, O(h·w·C) memory; the only
 path that fits HD inputs). Neither was a Pallas kernel in the JAX package.
-Batch norm runs in eval mode: `raft_apply(train_bn=True)` (RAFT training)
-is not ported yet.
+Batch norm runs in eval mode, except in training with `train_bn=True`
+(models/raft_train.py), where the context encoder normalizes with batch
+statistics and updates its running buffers in place.
 """
 
 from __future__ import annotations
@@ -69,17 +70,20 @@ class ResBlock(nn.Module):
             self.norms = _Norms(out_ch, stride != 1)
 
 
-def _norm(x, norm_fn, bn):
+def _norm(x, norm_fn, bn, train_bn=False):
     if norm_fn == "instance":
         return L.instance_norm_2d(x)
+    if train_bn:
+        return L.batch_norm_2d_train(bn, x)
     return L.batch_norm_2d(bn, x)
 
 
-def res_block(p: ResBlock, x, stride, norm_fn):
+def res_block(p: ResBlock, x, stride, norm_fn, train_bn=False):
     norms = getattr(p, "norms", None)
 
     def nrm(h, name):
-        return _norm(h, norm_fn, None if norms is None else getattr(norms, name))
+        return _norm(h, norm_fn, None if norms is None else getattr(norms, name),
+                     train_bn)
 
     y = F.relu(nrm(L.conv2d_torch(p.conv1, x, stride=stride, padding=1), "norm1"))
     y = F.relu(nrm(L.conv2d_torch(p.conv2, y, padding=1), "norm2"))
@@ -107,34 +111,54 @@ class BasicEncoder(nn.Module):
 
 
 def basic_encoder_apply(p: BasicEncoder, x, norm_fn, train_bn=False):
-    """(B, 3, H, W) in [-1, 1] -> (B, output_dim, H/8, W/8)."""
-    if train_bn and norm_fn == "batch":
-        raise NotImplementedError("RAFT batch-norm training (train_bn=True) "
-                                  "is not ported yet")
+    """(B, 3, H, W) in [-1, 1] -> (B, output_dim, H/8, W/8). train_bn (batch
+    norm_fn only): batch statistics, and `p`'s running buffers updated in
+    place."""
+    train_bn = train_bn and norm_fn == "batch"
     h = L.conv2d_torch(p.conv1, x, stride=2, padding=3)
-    h = F.relu(_norm(h, norm_fn, getattr(p, "bn1", None)))
+    h = F.relu(_norm(h, norm_fn, getattr(p, "bn1", None), train_bn))
     for layer, (_, _, stride) in zip(p.layers, _ENCODER_DIMS):
-        h = res_block(layer[0], h, stride, norm_fn)
-        h = res_block(layer[1], h, 1, norm_fn)
+        h = res_block(layer[0], h, stride, norm_fn, train_bn)
+        h = res_block(layer[1], h, 1, norm_fn, train_bn)
     return L.conv2d_torch(p.conv2, h)
 
 
 # --- correlation (corr.py CorrBlock, alt_cuda_corr) ---------------------------
 
 
+def _pool2(x):
+    """2x2 average pool of a pyramid level. A level under 2 px on a side
+    pools to an empty one (inputs under 64 px), as the JAX package's
+    reduce_window gives; `_sample` reads zeros there."""
+    if min(x.shape[2:]) < 2:
+        return x.new_zeros((*x.shape[:2], x.shape[2] // 2, x.shape[3] // 2))
+    return avg_pool(x, 2)
+
+
+def _sample(x, grid):
+    """Bilinear lookup with zero padding (align_corners=True); an empty
+    level reads zeros everywhere."""
+    if x.shape[2] == 0 or x.shape[3] == 0:
+        return x.new_zeros((*x.shape[:2], *grid.shape[1:3]))
+    return grid_sample(x, grid, align_corners=True, padding_mode="zeros")
+
+
 def build_corr_pyramid(fmap1, fmap2, num_levels=4):
     """All-pairs correlation of (B, C, h, w) feature maps: one batched
     matmul into (B·h·w, 1, h, w), then an avg-pool pyramid over the image-2
-    axes."""
+    axes. The pyramid is float32 under bfloat16 autocast too (the JAX
+    package's einsum accumulates to float32): the lookups' grid_sample would
+    otherwise cast every level to float32 again on each iteration, and
+    autograd keep each copy."""
     b, c, h, w = fmap1.shape
     f1 = fmap1.reshape(b, c, h * w).float()
     f2 = fmap2.reshape(b, c, h * w).float()
     # scaled in place: the (h·w)² volume is the smoother's largest buffer
-    corr = torch.matmul(f1.transpose(1, 2), f2).div_(math.sqrt(c))
+    corr = torch.matmul(f1.transpose(1, 2), f2).float().div_(math.sqrt(c))
     corr = corr.reshape(b * h * w, 1, h, w)
     pyramid = [corr]
     for _ in range(num_levels - 1):
-        corr = avg_pool(corr, 2)
+        corr = _pool2(corr)
         pyramid.append(corr)
     return pyramid
 
@@ -170,7 +194,7 @@ def lookup_corr(pyramid, coords, radius=4):
     for i, corr in enumerate(pyramid):
         hl, wl = corr.shape[2:]
         grid = _norm_grid(centroid / (2 ** i) + delta, hl, wl)
-        sampled = grid_sample(corr, grid, align_corners=True, padding_mode="zeros")
+        sampled = _sample(corr, grid)
         out.append(sampled.reshape(b, h, w, n * n))
     return torch.cat(out, dim=-1).permute(0, 3, 1, 2)
 
@@ -180,7 +204,7 @@ def build_fmap_pyramid(fmap, num_levels=4):
     lookup's state, O(h·w·C) where the all-pairs volume is O((h·w)²)."""
     pyr = [fmap.float()]
     for _ in range(num_levels - 1):
-        pyr.append(avg_pool(pyr[-1], 2))
+        pyr.append(_pool2(pyr[-1]))
     return pyr
 
 
@@ -212,7 +236,7 @@ def lookup_corr_alt(fmap1, fmap2_pyramid, coords, radius=4, offset_chunk=9):
         for s in range(0, n_off, offset_chunk):
             dk = delta[s:s + offset_chunk]
             grid = _norm_grid(centroid / (2 ** i) + dk, hl, wl)  # (B, h·w, k, 2)
-            smp = grid_sample(f2l, grid, align_corners=True, padding_mode="zeros")
+            smp = _sample(f2l, grid)
             smp = smp.permute(0, 2, 1, 3).reshape(b * h * w, c, dk.shape[0])
             lvl.append(torch.bmm(f1, smp).reshape(b, h * w, dk.shape[0]))
         out.append(torch.cat(lvl, dim=-1) * (1.0 / math.sqrt(c)))
@@ -341,11 +365,12 @@ def raft_apply(model: RAFT, image1, image2, cfg: RAFTConfig = RAFTConfig(),
                flow_init=None):
     """image1 / image2: (B, 3, H, W) in [0, 255], H and W multiples of 8.
     Returns (flow at 1/8, flow upsampled) in test mode, else the list of
-    each iteration's upsampled flow. flow_init: an optional (B, 2, H/8, W/8)
-    warm start (reference raft.py:124-125)."""
-    if train_bn:
-        raise NotImplementedError("raft_apply(train_bn=True) (RAFT training) "
-                                  "is not ported yet")
+    each iteration's upsampled flow. train_bn (with test_mode=False, the
+    'chairs' stage of training): the context encoder's batch norm uses batch
+    statistics and updates its running buffers in place. The refinement
+    loop does not stop the gradient through coords1, as the JAX package
+    does (upstream RAFT detaches it each iteration). flow_init: an optional
+    (B, 2, H/8, W/8) warm start (reference raft.py:124-125)."""
     if cfg.corr_impl not in ("allpairs", "alt"):
         raise ValueError(f"corr_impl {cfg.corr_impl!r}: 'allpairs' or 'alt'")
     alt = cfg.corr_impl == "alt"
@@ -357,7 +382,8 @@ def raft_apply(model: RAFT, image1, image2, cfg: RAFTConfig = RAFTConfig(),
     pyramid = (build_fmap_pyramid(fmap2, cfg.corr_levels) if alt
                else build_corr_pyramid(fmap1, fmap2, cfg.corr_levels))
 
-    cnet = basic_encoder_apply(model.cnet, x1, "batch")
+    cnet = basic_encoder_apply(model.cnet, x1, "batch",
+                               train_bn=train_bn and not test_mode)
     net = torch.tanh(cnet[:, :cfg.hidden_dim])
     inp = F.relu(cnet[:, cfg.hidden_dim:])
 

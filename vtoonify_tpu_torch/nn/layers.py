@@ -402,6 +402,26 @@ def batch_norm_2d(p, x, eps: float = 1e-5):
             + shift.to(x.dtype)[None, :, None, None])
 
 
+def batch_norm_2d_train(p, x, momentum: float = 0.1, eps: float = 1e-5):
+    """nn.BatchNorm2d in train mode: normalize with the biased batch
+    statistics, computed in float32 (gradients flow through them), and
+    update `p`'s running buffers in place with the unbiased variance at
+    momentum 0.1 (RAFT trains its context encoder's batch norm on the
+    'chairs' stage, reference model/raft/train.py:146-147)."""
+    xf = x.float()
+    mean = xf.mean(dim=(0, 2, 3))
+    var = (xf - mean[None, :, None, None]).square().mean(dim=(0, 2, 3))  # biased
+    inv = torch.rsqrt(var + eps) * p.weight
+    shift = p.bias - mean * inv
+    y = (x * inv.to(x.dtype)[None, :, None, None]
+         + shift.to(x.dtype)[None, :, None, None])
+    n = x.shape[0] * x.shape[2] * x.shape[3]
+    with torch.no_grad():
+        p.running_mean.mul_(1 - momentum).add_(momentum * mean)
+        p.running_var.mul_(1 - momentum).add_(momentum * var * (n / max(n - 1, 1)))
+    return y
+
+
 # ---------------------------------------------------------------------------
 # AdaIN + ModRes (reference model/dualstylegan.py:6-45)
 
