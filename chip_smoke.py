@@ -9,6 +9,8 @@
     python3 chip_smoke.py --apps    # pipeline options, the HTTP server,
                                     # smoothing and the release gate alone
     python3 chip_smoke.py --raft    # RAFT training and evaluation alone
+    python3 chip_smoke.py --reg     # the regularisers, full ADA and the
+                                    # auxiliary models alone
 
 Builds the port's five hand-written kernels from vtoonify_tpu_torch/csrc
 with nvcc (sm_90a, one nvcc per source, in parallel), checks each against its
@@ -68,7 +70,16 @@ with random weights from a seeded torch.Generator:
   TF32 and under bf16 autocast); the trainer command over synthetic
   FlyingChairs / FlyingThings3D / Sintel trees (chairs, then things from its
   .ckpt) and the eval command (Sintel validation, a warm-started
-  submission). RAFT launches none of the five kernels.
+  submission). RAFT launches none of the five kernels. The seed-9 step of
+  tests/test_torch_cuda.py also runs card vs CPU in float64;
+* regularise: each Function's second-order gradient against its plain
+  version's at a main-path shape; R1 (through the full ADA augment at p =
+  0.6) and the path-length penalty at 64 px card vs CPU; the full pSp at
+  1024 px, VGG19 and ArcFace's id_loss card vs CPU; then one R1 D step
+  (augment, D, d_r1_loss, backward, Adam) and one path-length G step
+  (mixing_noise, g_path_regularize, backward, Adam) of the flagship
+  StyleGAN2 at 1024 px, batch 4 (path batch 2), in rosinality
+  stylegan2-pytorch's recipe, float32, timed and profiled.
 
 Each phase prints one JSON object on a line of its own with its wall
 seconds; the line before the last holds the per-kernel summary, and the last
@@ -171,6 +182,30 @@ RAFT_RECIPES = [("chairs", 10, (368, 496), True, False, 4e-4, 1e-4),
                 ("things", 6, (400, 720), False, False, 1.25e-4, 1e-4),
                 ("things_bf16", 6, (400, 720), False, True, 1.25e-4, 1e-4)]
 RAFT_CLI_CHAIRS, RAFT_CLI_STEPS = 24, 4
+# the seed-9 step of tests/test_torch_cuda.py::test_raft_train_step_card_vs_cpu
+# also in float64, where float32 rounding (a ReLU input within it of zero
+# that flips) vanishes and a real fault would not: gradients card vs CPU
+# within 1e-8 relative L2 (float64 sums in another order)
+RAFT_F64_SEED, RAFT_F64_GRAD_REL_L2 = 9, 1e-8
+# regularise: rosinality stylegan2-pytorch train.py's recipe at config-f's
+# 1024 px (4 a card): R1 gamma 10 every 16 D steps, path_regularize 2 every 4
+# G steps on batch // path_batch_shrink, mixing 0.9; the ADA augment at p =
+# 0.6 (AdaptiveAugment's target 0.6, length 500k, every 256); float32 with
+# cuDNN's default TF32 convs, as upstream trains; 1 warm-up + REG_STEPS
+# timed + 1 profiled step each, and 1 profiled with the convs' shapes. Gates (TF32 off): each Function's
+# second-order gradient against its plain version's at backward_cases'
+# shapes (TOL_GRAD; B5, whose adjoint's adjoint is its forward, TOL_WARP_F32:
+# the coordinate rounding of the forward check); R1 (through the full ADA
+# augment) and the path penalty at 64 px, batch 2, the flagship widths,
+# card vs CPU from the same draws: the penalty within 1e-3 relative and
+# the parameter gradients within 1e-3 relative L2 (float32 sums in another
+# order through two backward passes; the train step's gradient bound); the
+# full pSp (1024), VGG19 and ArcFace forwards card vs CPU within 1e-4
+# relative L2 (STYLE_REL_L2: the same conv stacks in float32)
+REG_BATCH, PATH_BATCH_SHRINK, MIXING, ADA_P = 4, 2, 0.9, 0.6
+R1_GAMMA, D_REG_EVERY, PATH_REGULARIZE, G_REG_EVERY = 10.0, 16, 2.0, 4
+REG_STEPS, REG_GATE_PX, REG_GATE_BATCH = 3, 64, 2
+REG_GATE_RTOL, REG_GATE_GRAD_REL_L2, AUX_REL_L2 = 1e-3, 1e-3, 1e-4
 TINY_VT = dict(in_size=32, out_size=128, channel_multiplier=1, num_res_layers=2)
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM (data sheet)
@@ -510,9 +545,11 @@ def fir_library(a, k2d, up, down, pad):
 
 
 def backward_cases(rng, dev):
-    """(kernel, label, kernel fn, plain fn, inputs): each Function's
-    gradients on the card vs torch.autograd through the plain version, at one
-    main-path shape, float32."""
+    """(kernel, label, kernel fn, plain fn, inputs, second-order plain fn
+    or None): each Function's gradients on the card vs torch.autograd
+    through the plain version, at one main-path shape, float32. B5's second
+    order is held to its gather form (torch 2.11 cannot differentiate
+    F.grid_sample twice); None: the plain fn."""
     from vtoonify_tpu_torch.ops import kernels as K
     from vtoonify_tpu_torch.ops.upfirdn2d import make_kernel
     from vtoonify_tpu_torch.train import augment as A
@@ -530,20 +567,21 @@ def backward_cases(rng, dev):
         ("modconv3x3", "conv 64^2 512->512 modulated + act",
          K.modconv3x3, K.modconv3x3_plain,
          (t(1, 512, 64, 64), t(3, 3, 512, 512, scale=1 / 68), t(1, 512, shift=1.0),
-          t(1, 512, scale=0.1, shift=1.0), t(512, scale=0.1))),
+          t(1, 512, scale=0.1, shift=1.0), t(512, scale=0.1)), None),
         ("fused_leaky_relu", "(2,512,64,64)", K.fused_leaky_relu,
-         K.fused_leaky_relu_plain, (t(2, 512, 64, 64), t(512))),
+         K.fused_leaky_relu_plain, (t(2, 512, 64, 64), t(512)), None),
         ("upfirdn2d", "D blur (2,128,256,256) pad 2",
          lambda x: K.upfirdn2d(x, k_blur, (1, 1), (1, 1), (2, 2, 2, 2)),
          lambda x: K.upfirdn2d_plain(x, k_blur, (1, 1), (1, 1), (2, 2, 2, 2)),
-         (t(2, 128, 256, 256),)),
+         (t(2, 128, 256, 256),), None),
         ("depth_to_space2", "(1,1024,64,64) phase-minor",
          lambda x: K.depth_to_space2(x, True),
-         lambda x: K.depth_to_space2_plain(x, True), (t(1, 1024, 64, 64),)),
+         lambda x: K.depth_to_space2_plain(x, True), (t(1, 1024, 64, 64),), None),
         ("affine_warp", f"(2,6,{AUG},{AUG}) scaled affine",
          lambda x: K.affine_warp(x, coef, out_hw),
          lambda x: K.affine_warp_plain(x, coef, out_hw),
-         (torch.tanh(t(2, 6, AUG, AUG)),)),
+         (torch.tanh(t(2, 6, AUG, AUG)),),
+         lambda x: K.affine_warp_gather_plain(x, coef, out_hw)),
     ]
 
 
@@ -605,7 +643,7 @@ def kernel_phase(dev, only=None):
     for name, sm in summary.items():
         sm["bound_by"] = bound_ms(sm["bytes"], sm["flops"], "bfloat16")[1]
 
-    for name, label, kern, plain, inputs in backward_cases(np.random.RandomState(1), dev):
+    for name, label, kern, plain, inputs, _ in backward_cases(np.random.RandomState(1), dev):
         if name not in summary:
             continue
         grads = []
@@ -2499,6 +2537,51 @@ def raft_train_gates():
             rec[name] = _raft_steps_agree(out[a], out[b], before, tcfg.lr, n_valid,
                                           train_bn, name)
         rec[f"{bn}_card_metrics"] = out["allpairs", "cuda"][0]
+    rec["float64_seed9"] = raft_float64_gate()
+    return rec
+
+
+def raft_float64_gate():
+    """The seed-9 step of tests/test_torch_cuda.py::test_raft_train_step_card_vs_cpu
+    (raft-things widths, (2, 3, 48, 64), 2 iterations, noise, clip 0.5,
+    all-pairs, both BN modes), card against CPU in float32 (TF32 off) and
+    in float64: the gradients' relative L2 in each. Float64 leaves float32's
+    rounding flips (a ReLU input within rounding of zero) no room; a real
+    fault would stay. Gate: float64 within RAFT_F64_GRAD_REL_L2."""
+    import copy
+
+    from vtoonify_tpu_torch.models import raft as R
+    from vtoonify_tpu_torch.models import raft_train as RT
+
+    rng = np.random.RandomState(RAFT_F64_SEED)
+    model = R.init_raft(R.RAFTConfig(), torch.Generator().manual_seed(RAFT_F64_SEED))
+    inputs = (torch.from_numpy((rng.rand(2, 3, 48, 64) * 255).astype(np.float32)),
+              torch.from_numpy((rng.rand(2, 3, 48, 64) * 255).astype(np.float32)),
+              torch.from_numpy((rng.randn(2, 2, 48, 64) * 3.0).astype(np.float32)),
+              torch.from_numpy((rng.rand(2, 48, 64) > 0.2).astype(np.float32)))
+    draws = RT.sample_raft_train_draws(torch.Generator().manual_seed(RAFT_F64_SEED + 1),
+                                       inputs[0].shape)
+    rec = {}
+    for train_bn in (False, True):
+        tcfg = RT.RaftTrainConfig(lr=1e-4, num_steps=10, iters=2, add_noise=True,
+                                  clip=0.5, train_bn=train_bn)
+        for dtype in (torch.float32, torch.float64):
+            out = {}
+            for where in ("cpu", "cuda"):
+                state = RT.init_raft_train_state(copy.deepcopy(model).to(dtype), tcfg,
+                                                 device=where)
+                m = RT.raft_train_step(
+                    state, *(t.to(dtype) for t in inputs), R.RAFTConfig(), tcfg,
+                    draws=RT.RaftTrainDraws(draws.stdv.to(dtype), draws.noise1.to(dtype),
+                                            draws.noise2.to(dtype)))
+                out[where] = (float(m["loss"]), {k: p.grad.cpu()
+                                                 for k, p in state.model.named_parameters()})
+            name = f"{'train_bn' if train_bn else 'frozen_bn'}_{str(dtype)[6:]}"
+            rec[name] = {"loss_rel_err": abs(out["cuda"][0] - out["cpu"][0])
+                         / max(abs(out["cpu"][0]), 1e-30),
+                         "grad_rel_l2": _grads_rel_l2(out["cuda"][1], out["cpu"][1])}
+        check(rec[name]["grad_rel_l2"] <= RAFT_F64_GRAD_REL_L2,
+              f"RAFT seed-{RAFT_F64_SEED} step card vs CPU in float64: {rec}")
     return rec
 
 
@@ -2720,6 +2803,333 @@ def raft_train_phase(smi):
     return dict(launches)
 
 
+# ---------------------------------------------------------------------------
+# regularise: second-order gradients, R1 and the path-length penalty
+# (train/losses.py), the full ADA augment (train/augment_full.py) and the
+# auxiliary models (models/psp.py, vgg.py, arcface.py)
+
+
+def _second_order(fn, inputs, v1, v2):
+    """d/d(inputs, v1) <d/d(inputs) <fn(inputs), v1>, v2>: a gradient of a
+    gradient whose incoming gradient v1 carries history too, as R1 and the
+    path penalty take it; zero where a term vanishes."""
+    leaves = [x.detach().clone().requires_grad_() for x in (*inputs, v1)]
+    g1 = torch.autograd.grad((fn(*leaves[:-1]) * leaves[-1]).sum(), leaves[:-1],
+                             create_graph=True)
+    inner = sum((g * v).sum() for g, v in zip(g1, v2))
+    return [*(g.detach() for g in g1), *torch.autograd.grad(
+        inner, leaves, allow_unused=True, materialize_grads=True)]
+
+
+def second_order_gates(dev):
+    """Each Function's second-order gradient on the card, through the
+    wrapper, against the same through its plain version on the same card,
+    at backward_cases' main-path shapes, float32; with the kernel's
+    launches in the wrapper's run (B3: forward, adjoint and the adjoint's
+    adjoint; B5: forward and the image adjoint's adjoint)."""
+    from vtoonify_tpu_torch.ops import kernels as K
+
+    rng = np.random.RandomState(SEED + 30)
+    rec = {}
+    for name, label, kern, plain, inputs, plain2 in backward_cases(
+            np.random.RandomState(1), dev):
+        plain = plain2 or plain
+        with torch.no_grad():
+            out_shape = plain(*inputs).shape
+
+        def t(shape):
+            return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+
+        v1, v2 = t(out_shape), [t(x.shape) for x in inputs]
+        K.reset_launch_counts()
+        got = _second_order(kern, inputs, v1, v2)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()[name]
+        want = _second_order(plain, inputs, v1, v2)
+        errs = [(a - b).abs().max().item() / max(1.0, b.abs().max().item())
+                for a, b in zip(got, want)]
+        tol = TOL_WARP_F32 if name == "affine_warp" else TOL_GRAD
+        rec[name] = {"shape": label, "max_rel_err": max(errs), "tol": tol,
+                     "launches": launches,
+                     "finite": all(bool(torch.isfinite(a).all()) for a in got)}
+        check(rec[name]["finite"] and max(errs) <= tol,
+              f"{name} second order {label}: {rec[name]}")
+        check(launches > 0, f"{name}: its second order launched no kernel")
+        del got, want, v1, v2
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _rel_l2(a, b):
+    return ((a - b).norm() / max(b.norm().item(), 1e-30)).item()
+
+
+def _grads_rel_l2(a, b):
+    keys = sorted(b)
+    check(sorted(a) == keys, f"gradients of different parameters: {sorted(a)} vs {keys}")
+    return (sum(((a[k] - b[k]) ** 2).sum() for k in keys)
+            / sum((b[k] ** 2).sum() for k in keys)).sqrt().item()
+
+
+def regulariser_gates():
+    """R1 (through the full ADA augment at p = 0.6: B5, B3; the
+    Discriminator: B2, B3) and the path-length penalty (through the mapping
+    network and the synthesis: B1-B4) at REG_GATE_PX, batch 2, the flagship
+    widths, card against CPU from the same modules and draws, float32 with
+    TF32 off: the penalty, and its gradients w.r.t. every parameter."""
+    import copy
+
+    from vtoonify_tpu_torch.models import generator as G
+    from vtoonify_tpu_torch.nn.layers import set_trainable
+    from vtoonify_tpu_torch.ops import kernels as K
+    from vtoonify_tpu_torch.train import augment_full as AU
+    from vtoonify_tpu_torch.train import losses as LS
+
+    g = torch.Generator().manual_seed(SEED + 31)
+    px, b = REG_GATE_PX, REG_GATE_BATCH
+    dcfg, gcfg = G.DiscriminatorConfig(size=px), G.GeneratorConfig(size=px)
+    disc = set_trainable(G.init_discriminator(dcfg, g))
+    gen = set_trainable(G.init_generator(gcfg, g))
+    with torch.no_grad():  # non-zero noise weights and biases, as trained
+        for blk in [gen.conv1, *gen.convs]:
+            blk.noise.weight.uniform_(0.05, 0.2, generator=g)
+            blk.act_bias.normal_(0.0, 0.3, generator=g)
+    real = torch.tanh(torch.randn((b, 3, px, px), generator=g))
+    Ginv = torch.linalg.inv(AU.sample_affine_full(g, ADA_P, b, px, px))
+    Cm = AU.sample_color(g, ADA_P, b)
+    z = LS.mixing_noise(g, b, gcfg.style_dim, 1.0)
+    noise = G.make_noise(gen, gcfg, g, batch=b)
+    img_noise = torch.randn((b, 3, px, px), generator=g) / px
+
+    def r1(where):
+        d = copy.deepcopy(disc).to(where)
+        loss = LS.d_r1_loss(lambda x: G.discriminator_apply(
+            d, dcfg, AU.augment(x, ADA_P, G=Ginv, C=Cm)[0]), real.to(where))
+        loss.backward()
+        return loss.item(), {k: p.grad.cpu() for k, p in d.named_parameters()
+                             if p.grad is not None}
+
+    def path(where):
+        gn = copy.deepcopy(gen).to(where)
+        lat = G.styles_to_latent(gn, gcfg, [v.to(where) for v in z], inject_index=3)
+        pen, mean, lengths = LS.g_path_regularize(
+            lambda w: G.generator_apply(gn, gcfg, w, noise=[n.to(where) for n in noise]),
+            lat, 0.5, noise=img_noise.to(where))
+        pen.backward()
+        return pen.item(), {k: p.grad.cpu() for k, p in gn.named_parameters()
+                            if p.grad is not None}
+
+    rec = {"px": px, "batch": b, "widths": "flagship (channel_multiplier 2)",
+           "ada_p": ADA_P, "tf32": False}
+    for name, fn, expect in (("r1", r1, ("fused_leaky_relu", "upfirdn2d", "affine_warp")),
+                             ("path", path, ("modconv3x3", "fused_leaky_relu",
+                                             "upfirdn2d", "depth_to_space2"))):
+        t1 = time.perf_counter()
+        cpu_loss, cpu_grads = fn("cpu")
+        cpu_s = time.perf_counter() - t1
+        K.reset_launch_counts()
+        card_loss, card_grads = fn("cuda")
+        launches = K.launch_counts()
+        r = {"cpu": cpu_loss, "card": card_loss, "cpu_seconds": cpu_s,
+             "rel_err": abs(card_loss - cpu_loss) / max(abs(cpu_loss), 1e-30),
+             "grads_rel_l2": _grads_rel_l2(card_grads, cpu_grads),
+             "n_param_grads": len(cpu_grads), "launches": launches}
+        rec[name] = r
+        check(np.isfinite(card_loss) and r["rel_err"] <= REG_GATE_RTOL
+              and r["grads_rel_l2"] <= REG_GATE_GRAD_REL_L2, f"{name} card vs CPU: {r}")
+        for k in expect:
+            check(launches[k] > 0, f"{name} on the card launched no {k}")
+    return rec
+
+
+def conv_shape_profile(fn, top=8):
+    """One fn() under torch.profiler with shapes: the convolution ops
+    (aten::convolution's children) with the most device time, each with
+    its input shapes, count and device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    avgs = prof.key_averages(group_by_input_shape=True)
+    key = ("device_time_total" if hasattr(avgs[0], "device_time_total")
+           else "cuda_time_total")
+    convs = sorted((e for e in avgs if e.key == "aten::_convolution"),
+                   key=lambda e: getattr(e, key), reverse=True)
+    return [{"op": e.key, "input_shapes": str(e.input_shapes[:2]), "count": e.count,
+             "device_ms": getattr(e, key) / 1e3} for e in convs[:top]]
+
+
+def reg_timed(smi):
+    """One R1 D step and one path-length G step of the flagship StyleGAN2
+    (GeneratorConfig(), DiscriminatorConfig(size=1024)) in rosinality's
+    recipe (REG_* above), timed and profiled, each step's launches
+    recorded."""
+    from vtoonify_tpu_torch.models import generator as G
+    from vtoonify_tpu_torch.nn.layers import set_trainable
+    from vtoonify_tpu_torch.train import augment_full as AU
+    from vtoonify_tpu_torch.train import losses as LS
+
+    g = torch.Generator().manual_seed(SEED + 32)
+    gcfg, dcfg = G.GeneratorConfig(), G.DiscriminatorConfig(size=1024)
+    gen = set_trainable(G.init_generator(gcfg, g)).cuda()
+    disc = set_trainable(G.init_discriminator(dcfg, g)).cuda()
+    g_ratio, d_ratio = G_REG_EVERY / (G_REG_EVERY + 1), D_REG_EVERY / (D_REG_EVERY + 1)
+    g_optim = torch.optim.Adam(gen.parameters(), lr=0.002 * g_ratio,
+                               betas=(0.0, 0.99 ** g_ratio))
+    d_optim = torch.optim.Adam(disc.parameters(), lr=0.002 * d_ratio,
+                               betas=(0.0, 0.99 ** d_ratio))
+    ada = AU.AdaptiveAugment(0.6, 500 * 1000, 256)
+    ada.ada_aug_p = ADA_P
+    cg = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    real = torch.tanh(torch.randn((REG_BATCH, 3, 1024, 1024), generator=cg, device="cuda"))
+    path_batch = max(1, REG_BATCH // PATH_BATCH_SHRINK)
+    mean_path = [torch.zeros((), device="cuda")]
+
+    def r1_step():
+        def d_fn(x):
+            return G.discriminator_apply(disc, dcfg, AU.augment(x, ada.ada_aug_p,
+                                                                generator=cg)[0])
+        r1 = LS.d_r1_loss(d_fn, real)
+        d_optim.zero_grad(set_to_none=True)
+        (R1_GAMMA / 2 * r1 * D_REG_EVERY).backward()
+        d_optim.step()
+        return {"r1_loss": r1.detach()}
+
+    def path_step():
+        z = LS.mixing_noise(cg, path_batch, gcfg.style_dim, MIXING, device="cuda")
+        inject = (None if len(z) == 1 else
+                  int(torch.randint(1, gcfg.n_latent, (1,), generator=g)))
+        lat = G.styles_to_latent(gen, gcfg, z, inject_index=inject)
+        noise = G.make_noise(gen, gcfg, cg, batch=path_batch, device="cuda")
+        pen, mean_path[0], lengths = LS.g_path_regularize(
+            lambda w: G.generator_apply(gen, gcfg, w, noise=noise), lat, mean_path[0],
+            generator=cg)
+        g_optim.zero_grad(set_to_none=True)
+        (PATH_REGULARIZE * G_REG_EVERY * pen).backward()
+        g_optim.step()
+        return {"path_loss": pen.detach(), "mean_path_length": mean_path[0],
+                "path_length": lengths.mean().detach()}
+
+    out, launches = {}, {}
+    for name, run, expect in (
+            ("r1_d_step", r1_step, ("fused_leaky_relu", "upfirdn2d", "affine_warp")),
+            ("path_g_step", path_step, ("modconv3x3", "fused_leaky_relu", "upfirdn2d",
+                                        "depth_to_space2"))):
+        before = _flat(disc if name == "r1_d_step" else gen)
+        rec, launches[name] = _timed_steps(run, REG_STEPS, expect, f"reg_{name}_profile.txt")
+        rec["conv_shapes"] = conv_shape_profile(run)
+        rec["moved_abs_sum"] = (_flat(disc if name == "r1_d_step" else gen)
+                                - before).abs().sum().item()
+        check(rec["moved_abs_sum"] > 0, f"{name}: the parameters did not move")
+        out[name] = rec
+    out["path_g_step"]["path_batch"] = path_batch
+    out["params"] = {"generator": sum(p.numel() for p in gen.parameters()),
+                     "discriminator": sum(p.numel() for p in disc.parameters())}
+    del gen, disc, g_optim, d_optim, real
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def aux_models_vs_cpu():
+    """The full pSp (output_size 1024, resize to 256, codes returned) on a
+    256 px face, VGG19's features and loss at 256 px and ArcFace's id_loss
+    on 256 px images: forward once on the card against the CPU, float32,
+    TF32 off; then one timed call of each on the card (pSp profiled), with
+    its launches."""
+    import copy
+
+    from vtoonify_tpu_torch.models import arcface as AF
+    from vtoonify_tpu_torch.models import psp as P
+    from vtoonify_tpu_torch.models import vgg as VG
+    from vtoonify_tpu_torch.ops import kernels as K
+
+    g = torch.Generator().manual_seed(SEED + 34)
+    cfg = P.PSPConfig(output_size=1024)
+    psp = P.init_psp(cfg, g)
+    with torch.no_grad():
+        psp.latent_avg.normal_(0.0, 0.3, generator=g)
+        for blk in psp.decoder.convs:  # contrast in the random-weight image
+            blk.act_bias.normal_(0.0, 0.5, generator=g)
+    vgg, arc = VG.init_vgg19(g), AF.init_arcface_backbone(112, g)
+    face = torch.tanh(torch.randn((1, 3, 256, 256), generator=g))
+    x, y = (torch.tanh(torch.randn((2, 3, 256, 256), generator=g)) for _ in range(2))
+    calls = {
+        "psp": (psp, lambda m, dev: P.psp_apply(m, cfg, face.to(dev), resize=True,
+                                                return_latents=True)),
+        "vgg19": (vgg, lambda m, dev: (*VG.vgg19_features(m, x.to(dev)),
+                                       VG.vgg_loss(m, x.to(dev), y.to(dev)))),
+        "arcface": (arc, lambda m, dev: (AF.arcface_apply(m, x[:, :, :112, :112].to(dev)),
+                                         AF.id_loss(m, x.to(dev), y.to(dev)))),
+    }
+    rec = {}
+    for name, (module, fn) in calls.items():
+        with torch.no_grad():
+            t1 = time.perf_counter()
+            want = fn(module, "cpu")
+            cpu_s = time.perf_counter() - t1
+            card = copy.deepcopy(module).cuda()
+            got = fn(card, "cuda")
+            errs = [_rel_l2(a.cpu().reshape(-1), b.reshape(-1)) for a, b in zip(got, want)]
+            K.reset_launch_counts()
+            ms, out = _sync_ms(lambda: fn(card, "cuda"))
+            launches = K.launch_counts()
+        r = {"rel_l2": errs, "card_ms": ms, "cpu_seconds": cpu_s, "launches": launches,
+             "finite": all(bool(torch.isfinite(a).all()) for a in out)}
+        if name == "psp":
+            r["image_shape"], r["codes_shape"] = list(out[0].shape), list(out[1].shape)
+            check(r["image_shape"] == [1, 3, 256, 256] and r["codes_shape"] == [1, 18, 512],
+                  f"psp shapes {r}")
+            with torch.no_grad():
+                r["profile"] = device_profile(lambda: fn(card, "cuda"), "reg_psp_profile.txt")
+            for k in ("modconv3x3", "upfirdn2d", "depth_to_space2"):
+                check(launches[k] > 0, f"the pSp decoder launched no {k}")
+        rec[name] = r
+        check(r["finite"] and max(errs) <= AUX_REL_L2, f"{name} card vs CPU: {r}")
+        del card, want, got, out
+        torch.cuda.empty_cache()
+    return rec
+
+
+def regularise_phase(smi):
+    """The second-order gates, the regulariser gates at 64 px and the
+    auxiliary models card vs CPU (TF32 off); then the flagship R1 D step and
+    path-length G step timed in cuDNN's default TF32 convs. Returns the
+    launches of B1-B5 in the phase's main path: one R1 D step, one path G
+    step and one pSp forward."""
+    t0 = time.perf_counter()
+    rec = {"phase": "regularise", "nvidia_smi": smi,
+           "config": "rosinality stylegan2-pytorch train.py at 1024 px (config-f): "
+                     "GeneratorConfig(), DiscriminatorConfig(size=1024), batch 4, "
+                     f"path batch {REG_BATCH // PATH_BATCH_SHRINK}, r1 {R1_GAMMA}, "
+                     f"path_regularize {PATH_REGULARIZE}, mixing {MIXING}, ADA p {ADA_P}, "
+                     "float32"}
+    rec["second_order"] = second_order_gates(torch.device("cuda"))
+    rec["gates"] = regulariser_gates()
+    rec["aux_models"] = aux_models_vs_cpu()
+    rec["gates_seconds"] = time.perf_counter() - t0
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default, as upstream trains
+    try:
+        timed, launches = reg_timed(smi)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    rec.update(timed)
+    total = collections.Counter()
+    for part in (launches["r1_d_step"], launches["path_g_step"],
+                 rec["aux_models"]["psp"]["launches"]):
+        total.update(part)
+    rec["launches"] = dict(total)
+    rec["seconds"] = time.perf_counter() - t0
+    (OUT_DIR / "regularise.json").write_text(json.dumps(rec, indent=1))
+    emit({k: v for k, v in rec.items() if k not in ("aux_models",)}
+         | {"aux_models": {k: {kk: vv for kk, vv in v.items() if kk != "profile"}
+                           for k, v in rec["aux_models"].items()}})
+    return dict(total)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2781,8 +3191,13 @@ def main():
         # RAFT training and evaluation alone; no result line
         raft_train_phase(smi)
         return
+    if sys.argv[1:] == ["--reg"]:
+        # the regularisers, full ADA and the auxiliary models alone; no
+        # result line
+        regularise_phase(smi)
+        return
     check(len(sys.argv) == 1,
-          "usage: chip_smoke.py [--kernels NAME[,NAME...] | --paths | --apps | --raft]")
+          "usage: chip_smoke.py [--kernels NAME[,NAME...] | --paths | --apps | --raft | --reg]")
     summary = kernel_phase(dev)
     launches_serve = serve_phases(smi)
     launches_style_engine = style_engine_phase(smi)
@@ -2802,13 +3217,14 @@ def main():
     train_tiny_vs_cpu_phase()
     launches_cli = train_cli_phase()
     launches_raft = raft_train_phase(smi)
+    launches_reg = regularise_phase(smi)
     paths = {"serve": launches_serve, "style_engine": launches_style_engine,
              "pipeline_options": launches_options, "serve_http": launches_http,
              "smooth_parsing": launches_smooth, "release_gate": launches_gate,
              "train_step": launches_train, "pretrain_d_step": launches_pretrain_d,
              "pretrain_t_step": launches_t["pretrain_t"],
              "train_t_step": launches_t["train_t"], "train_cli": launches_cli,
-             "raft_train_step": launches_raft}
+             "raft_train_step": launches_raft, "regularise": launches_reg}
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [

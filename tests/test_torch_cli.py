@@ -130,3 +130,33 @@ def test_model_image_toonify(zoo, tmp_path):
     np.testing.assert_array_equal(got, want)
     assert M.dynamic_batch_size(256, 256) == 16
     assert M.dynamic_batch_size(256, 256, on_accelerator=False) == 4
+
+
+def _console_scripts():
+    import tomllib
+    from pathlib import Path
+
+    text = (Path(__file__).resolve().parent.parent / "pyproject.toml").read_text()
+    return tomllib.loads(text)["project"]["scripts"]
+
+
+_JAX_SCRIPTS = sorted(k for k in _console_scripts() if not k.startswith("vtoonify-torch-"))
+
+
+@pytest.mark.parametrize("name", _JAX_SCRIPTS)
+def test_console_script_twins_resolve_and_print_help(name, capsys):
+    """Each JAX console script has a `vtoonify-torch-*` twin naming the
+    port's module of the same path; its `main` is callable and `--help`
+    exits 0."""
+    import importlib
+
+    scripts = _console_scripts()
+    twin = name.replace("vtoonify-", "vtoonify-torch-", 1)
+    module, func = scripts[twin].split(":")
+    assert module == scripts[name].split(":")[0].replace("vtoonify_tpu.", "vtoonify_tpu_torch.", 1)
+    main = getattr(importlib.import_module(module), func)
+    assert callable(main)
+    with pytest.raises(SystemExit) as exc:
+        main(["--help"])
+    assert exc.value.code in (0, None)
+    assert "usage" in capsys.readouterr().out.lower()

@@ -7,7 +7,8 @@ signed pads and 12-tap filters, every up/down pair, rows on and off the
 16-byte vector, more than 65535 planes, both depth-to-space orders, 1-byte
 elements, warps of non-square images onto ragged outputs partly outside the
 image; and
-each autograd Function's backward on the card; and the stage-1 and T
+each autograd Function's backward and second-order gradient on the card;
+R1 and the path-length penalty card against CPU; and the stage-1 and T
 training steps at the --tiny size, card against CPU. The main-path shapes are
 checked by chip_smoke.py. Run on a machine with an H100 (it has no
 JAX, so skip the suite's conftest):
@@ -276,6 +277,98 @@ def test_backward_on_card(dev):
     _backward_matches(dev, lambda x: kernels.affine_warp(x, coef, (11, 13)),
                       lambda x: kernels.affine_warp_plain(x, coef, (11, 13)),
                       (r(2, 3, 15, 17),))
+
+
+def _second_order(fn, inputs, v1, v2):
+    """d/d(inputs, v1) <d/d(inputs) <fn(inputs), v1>, v2>, the incoming
+    gradient v1 carrying history too (zero where a term vanishes)."""
+    leaves = [x.detach().clone().requires_grad_() for x in (*inputs, v1)]
+    g1 = torch.autograd.grad((fn(*leaves[:-1]) * leaves[-1]).sum(), leaves[:-1],
+                             create_graph=True)
+    inner = sum((g * v).sum() for g, v in zip(g1, v2))
+    return [*(g.detach() for g in g1), *torch.autograd.grad(
+        inner, leaves, allow_unused=True, materialize_grads=True)]
+
+
+def test_second_order_on_card(dev):
+    """Each Function's second-order gradient on CUDA tensors against the
+    same through its plain version on the card (B5's gather form: torch
+    2.11 cannot differentiate F.grid_sample twice), float32; B3's adjoint
+    of the adjoint and B5's image adjoint's adjoint launch their kernels."""
+    rng = np.random.RandomState(5)
+    r = lambda *s, **k: _rand(rng, *s, **k).to(dev)  # noqa: E731
+    k2 = torch.from_numpy(rng.rand(4, 4).astype(np.float32))
+    coef = torch.tensor([[1.1, 0.1, -0.4, -0.05, 0.95, 0.7]] * 2, device=dev)
+    cases = [
+        ("modconv3x3", kernels.modconv3x3, kernels.modconv3x3_plain,
+         (r(2, 5, 9, 13), r(3, 3, 5, 7, scale=0.2), r(2, 5, shift=1.0),
+          r(2, 7, shift=1.0), r(7))),
+        ("fused_leaky_relu", kernels.fused_leaky_relu, kernels.fused_leaky_relu_plain,
+         (r(2, 7, 5, 3), r(7))),
+        ("upfirdn2d", lambda x: kernels.upfirdn2d(x, k2, (2, 2), (1, 1), (2, 1, 2, 1)),
+         lambda x: kernels.upfirdn2d_plain(x, k2, (2, 2), (1, 1), (2, 1, 2, 1)),
+         (r(2, 3, 17, 19),)),
+        ("depth_to_space2", lambda x: kernels.depth_to_space2(x, True),
+         lambda x: kernels.depth_to_space2_plain(x, True), (r(2, 12, 5, 7),)),
+        ("affine_warp", lambda x: kernels.affine_warp(x, coef, (11, 13)),
+         lambda x: kernels.affine_warp_gather_plain(x, coef, (11, 13)), (r(2, 3, 15, 17),)),
+    ]
+    for name, kern, plain, inputs in cases:
+        v1 = r(*plain(*inputs).shape)
+        v2 = [r(*x.shape) for x in inputs]
+        kernels.reset_launch_counts()
+        got = _second_order(kern, inputs, v1, v2)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()[name] >= {"upfirdn2d": 3, "affine_warp": 2}.get(name, 1)
+        for a, b in zip(got, _second_order(plain, inputs, v1, v2)):
+            _close(a, b, torch.float32)
+
+
+def test_r1_and_path_penalty_card_vs_cpu(dev):
+    """R1 through the full ADA augment (p = 0.6) and a 32 px Discriminator,
+    and the path-length penalty through a 32 px Generator, card against CPU
+    from the same modules and draws (float32, TF32 off): the penalty within
+    1e-3 relative, its parameter gradients within 1e-3 relative L2."""
+    import copy
+
+    from vtoonify_tpu_torch.models import generator as G
+    from vtoonify_tpu_torch.nn.layers import set_trainable
+    from vtoonify_tpu_torch.train import augment_full as AU
+    from vtoonify_tpu_torch.train import losses as LS
+
+    g = torch.Generator().manual_seed(12)
+    dcfg = G.DiscriminatorConfig(size=32, channel_max=64)
+    gcfg = G.GeneratorConfig(size=32, style_dim=64, n_mlp=2, channel_max=64)
+    disc = set_trainable(G.init_discriminator(dcfg, g))
+    gen = set_trainable(G.init_generator(gcfg, g))
+    real = torch.tanh(torch.randn((2, 3, 32, 32), generator=g))
+    Ginv = torch.linalg.inv(AU.sample_affine_full(g, 0.6, 2, 32, 32))
+    Cm = AU.sample_color(g, 0.6, 2)
+    z = LS.mixing_noise(g, 2, 64, 1.0)
+    noise = G.make_noise(gen, gcfg, g, batch=2)
+    img_noise = torch.randn((2, 3, 32, 32), generator=g) / 32
+
+    def r1(where):
+        d = copy.deepcopy(disc).to(where)
+        loss = LS.d_r1_loss(lambda x: G.discriminator_apply(
+            d, dcfg, AU.augment(x, 0.6, G=Ginv, C=Cm)[0]), real.to(where))
+        loss.backward()
+        return loss.item(), [p.grad.cpu() for p in d.parameters() if p.grad is not None]
+
+    def path(where):
+        gn = copy.deepcopy(gen).to(where)
+        lat = G.styles_to_latent(gn, gcfg, [v.to(where) for v in z], inject_index=3)
+        pen = LS.g_path_regularize(
+            lambda w: G.generator_apply(gn, gcfg, w, noise=[n.to(where) for n in noise]),
+            lat, 0.5, noise=img_noise.to(where))[0]
+        pen.backward()
+        return pen.item(), [p.grad.cpu() for p in gn.parameters() if p.grad is not None]
+
+    for fn in (r1, path):
+        (lc, gc), (lg, gg) = fn("cpu"), fn(dev)
+        assert abs(lg - lc) <= 1e-3 * abs(lc)
+        num = sum(((a - b) ** 2).sum() for a, b in zip(gg, gc))
+        assert len(gg) == len(gc) and (num / sum((b ** 2).sum() for b in gc)).sqrt() <= 1e-3
 
 
 def test_launch_counts_and_refusals(dev):
@@ -548,6 +641,35 @@ def _raft_steps_agree(a, b, before, lr, n_valid, bn_trained):
                 assert torch.allclose(ap[k], bp[k], atol=1e-4, rtol=0), k
             else:
                 assert torch.equal(ap[k], before[k]) and torch.equal(bp[k], before[k]), k
+
+
+@pytest.mark.parametrize("train_bn", [False, True])
+def test_raft_train_step_float64_card_vs_cpu(dev, train_bn):
+    """The step of test_raft_train_step_card_vs_cpu (seed 9, all-pairs) in
+    float64: float32's rounding flips have no room there, so the gradients
+    agree within 1e-8 relative L2 (float64 sums in another order)."""
+    import copy
+
+    from vtoonify_tpu_torch.models import raft, raft_train
+
+    rng = np.random.RandomState(9)
+    model = raft.init_raft(raft.RAFTConfig(), torch.Generator().manual_seed(9)).double()
+    tcfg = raft_train.RaftTrainConfig(lr=1e-4, num_steps=10, iters=2, add_noise=True,
+                                      clip=0.5, train_bn=train_bn)
+    inputs = (torch.from_numpy(rng.rand(2, 3, 48, 64) * 255),
+              torch.from_numpy(rng.rand(2, 3, 48, 64) * 255),
+              torch.from_numpy(rng.randn(2, 2, 48, 64) * 3.0),
+              torch.from_numpy((rng.rand(2, 48, 64) > 0.2).astype(np.float64)))
+    d = raft_train.sample_raft_train_draws(torch.Generator().manual_seed(10),
+                                           inputs[0].shape)
+    draws = raft_train.RaftTrainDraws(d.stdv.double(), d.noise1.double(), d.noise2.double())
+    grads = []
+    for where in ("cpu", "cuda"):
+        state = raft_train.init_raft_train_state(copy.deepcopy(model), tcfg, device=where)
+        raft_train.raft_train_step(state, *inputs, raft.RAFTConfig(), tcfg, draws=draws)
+        grads.append([p.grad.cpu() for p in state.model.parameters()])
+    num = sum(((a - b) ** 2).sum() for a, b in zip(grads[1], grads[0]))
+    assert (num / sum((b ** 2).sum() for b in grads[0])).sqrt() <= 1e-8
 
 
 @pytest.mark.parametrize("train_bn", [False, True])

@@ -210,6 +210,30 @@ def test_raft_apply_train_bn_updates_only_the_cnet(jax_run):
     assert moved == ({k for k in before if "running" in k} if jax_run["train_bn"] else set())
 
 
+def test_raft_train_step_runs_in_float64(jax_run):
+    """A float64 model steps in float64 throughout (the correlation
+    pyramid, the coordinates, train-mode BN statistics, the sequence loss):
+    the gate that tells float32 rounding from a fault runs the step so. Its
+    loss and metrics within 1e-5 relative of JAX's float32 step, its new
+    params within 1e-4 relative L2 (float32 against float64)."""
+    model = load_jax_params(R.init_raft(), jax_run["params0"]).double()
+    tcfg = T.RaftTrainConfig(train_bn=jax_run["train_bn"], **TCFG)
+    state = T.init_raft_train_state(model, tcfg, device="cpu")
+    d = jax_run["draws"][0]
+    im1, im2, flow, valid = (torch.from_numpy(a).double() for a in _inputs())
+    m = T.raft_train_step(state, im1.permute(0, 3, 1, 2), im2.permute(0, 3, 1, 2),
+                          flow.permute(0, 3, 1, 2), valid, R.RAFTConfig(), tcfg,
+                          draws=T.RaftTrainDraws(*(t.double() for t in (d.stdv, d.noise1,
+                                                                        d.noise2))))
+    assert {v.dtype for v in m.values()} == {torch.float64}
+    assert {v.dtype for v in model.state_dict().values()} == {torch.float64}
+    for k, v in jax_run["metrics"][0].items():
+        np.testing.assert_allclose(float(m[k]), v, rtol=RTOL, err_msg=k)
+    got, want = model.state_dict(), jax_run["params"][0]
+    trained = [k for k in got if "running" not in k]
+    assert _tree_rel({k: got[k].float() for k in trained}, want, trained) <= PARAMS_REL_L2
+
+
 def test_corr_pyramid_stays_float32_under_autocast():
     """--mixed_precision: the correlation matmul runs in bfloat16, the
     pyramid the 12 lookups sample stays float32 (as JAX's einsum with a

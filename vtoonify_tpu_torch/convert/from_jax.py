@@ -14,7 +14,12 @@ Layout rules, by leaf:
   * any other 4-D leaf (image-like: the generator's constant input, its
     noise images, ToRGB's bias) NHWC -> NCHW;
   * 2-D `weight` (linear, (in, out)) -> (out, in);
+  * a string leaf (a marker such as VGG19's "pool") holds no array and is
+    skipped;
   * everything else as is.
+
+A transposed-conv weight (the JAX package's (kh, kw, Cout // groups, Cin))
+takes the 4-D rule too, and lands in torch's (Cin, Cout // groups, kh, kw).
 """
 
 from __future__ import annotations
@@ -41,6 +46,8 @@ def _flatten(tree, prefix: str, out: dict):
         items = tree.items()
     elif isinstance(tree, (list, tuple)):
         items = enumerate(tree)
+    elif isinstance(tree, str):
+        return
     else:
         name = prefix.rsplit(".", 1)[-1]
         out[prefix] = torch.from_numpy(

@@ -2,7 +2,7 @@
 numpy (port of vtoonify_tpu/convert/torch_import.py: `flatten_torch_state`,
 `convert_generator`, `convert_dualstylegan`, `convert_vtoonify`,
 `convert_bisenet`, `convert_psp_encoder`, `load_psp_standalone`,
-`convert_raft`).
+`convert_raft`; and the JAX models' `convert_vgg19` and `convert_psp`).
 
 The port's modules carry the JAX package's parameter names, so a reference
 checkpoint reaches them in two steps: these converters map the reference's
@@ -231,6 +231,29 @@ def load_psp_standalone(ckpt: dict, cfg):
     sub = {k[len("encoder."):]: v for k, v in sd.items() if k.startswith("encoder.")}
     latent_avg = _j(ckpt["latent_avg"]) if "latent_avg" in ckpt else None
     return convert_psp_encoder(sub, cfg), latent_avg
+
+
+def convert_psp(sd, cfg):
+    """Full pSp checkpoint (`encoder.*`, `decoder.*`, `latent_avg`) ->
+    params (cfg: models.psp.PSPConfig); JAX models/psp.py::convert_psp."""
+    enc = {k[len("encoder."):]: v for k, v in sd.items() if k.startswith("encoder.")}
+    dec = {k[len("decoder."):]: v for k, v in sd.items() if k.startswith("decoder.")}
+    return {"encoder": convert_psp_encoder(enc, cfg.encoder),
+            "decoder": convert_generator(dec, cfg.decoder),
+            "latent_avg": (_j(sd["latent_avg"]) if "latent_avg" in sd
+                           else np.zeros((cfg.n_styles, 512), np.float32))}
+
+
+# --- VGG19 (torchvision `features.*`; JAX models/vgg.py::convert_vgg19) -----
+
+
+def convert_vgg19(sd):
+    """torchvision vgg19 `features.*` -> params: five slices of convs, the
+    pools marked "pool"."""
+    per_slice = [(0,), (2, None, 5), (7, None, 10), (12, 14, 16, None, 19),
+                 (21, 23, 25, None, 28)]
+    return [["pool" if i is None else _conv(sd, f"features.{i}") for i in sl]
+            for sl in per_slice]
 
 
 # --- BiSeNet (reference model/bisenet/model.py) -------------------------------

@@ -143,6 +143,12 @@ def _sample(x, grid):
     return grid_sample(x, grid, align_corners=True, padding_mode="zeros")
 
 
+def _at_least_f32(t):
+    """t in float32, or float64 where it is (a float64 model, as a gate
+    that rules out float32 rounding runs it)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def build_corr_pyramid(fmap1, fmap2, num_levels=4):
     """All-pairs correlation of (B, C, h, w) feature maps: one batched
     matmul into (B·h·w, 1, h, w), then an avg-pool pyramid over the image-2
@@ -151,10 +157,10 @@ def build_corr_pyramid(fmap1, fmap2, num_levels=4):
     otherwise cast every level to float32 again on each iteration, and
     autograd keep each copy."""
     b, c, h, w = fmap1.shape
-    f1 = fmap1.reshape(b, c, h * w).float()
-    f2 = fmap2.reshape(b, c, h * w).float()
+    f1 = _at_least_f32(fmap1.reshape(b, c, h * w))
+    f2 = _at_least_f32(fmap2.reshape(b, c, h * w))
     # scaled in place: the (h·w)² volume is the smoother's largest buffer
-    corr = torch.matmul(f1.transpose(1, 2), f2).float().div_(math.sqrt(c))
+    corr = _at_least_f32(torch.matmul(f1.transpose(1, 2), f2)).div_(math.sqrt(c))
     corr = corr.reshape(b * h * w, 1, h, w)
     pyramid = [corr]
     for _ in range(num_levels - 1):
@@ -202,7 +208,7 @@ def lookup_corr(pyramid, coords, radius=4):
 def build_fmap_pyramid(fmap, num_levels=4):
     """Avg-pool pyramid of the (B, C, h, w) image-2 features: the alt
     lookup's state, O(h·w·C) where the all-pairs volume is O((h·w)²)."""
-    pyr = [fmap.float()]
+    pyr = [_at_least_f32(fmap)]
     for _ in range(num_levels - 1):
         pyr.append(_pool2(pyr[-1]))
     return pyr
@@ -227,7 +233,7 @@ def lookup_corr_alt(fmap1, fmap2_pyramid, coords, radius=4, offset_chunk=9):
     while n_off % offset_chunk:
         offset_chunk -= 1
     # (B·h·w, 1, C): the batched dot's left operand
-    f1 = fmap1.float().reshape(b, c, h * w).transpose(1, 2).reshape(b * h * w, 1, c)
+    f1 = _at_least_f32(fmap1).reshape(b, c, h * w).transpose(1, 2).reshape(b * h * w, 1, c)
     centroid = coords.permute(0, 2, 3, 1).reshape(b, h * w, 1, 2)
     out = []
     for i, f2l in enumerate(fmap2_pyramid):
@@ -340,9 +346,9 @@ def init_raft(cfg: RAFTConfig = RAFTConfig(), generator=None) -> RAFT:
     return RAFT(cfg, generator)
 
 
-def _coords_grid(b, h, w, device):
-    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=device),
-                            torch.arange(w, dtype=torch.float32, device=device),
+def _coords_grid(b, h, w, device, dtype=torch.float32):
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=dtype, device=device),
+                            torch.arange(w, dtype=dtype, device=device),
                             indexing="ij")
     return torch.stack([xs, ys])[None].expand(b, 2, h, w)
 
@@ -388,7 +394,7 @@ def raft_apply(model: RAFT, image1, image2, cfg: RAFTConfig = RAFTConfig(),
     inp = F.relu(cnet[:, cfg.hidden_dim:])
 
     b, _, h, w = fmap1.shape
-    coords0 = _coords_grid(b, h, w, x1.device)
+    coords0 = _coords_grid(b, h, w, x1.device, torch.promote_types(x1.dtype, torch.float32))
     coords1 = coords0 if flow_init is None else coords0 + flow_init
 
     flows_up = []

@@ -53,24 +53,25 @@ def sequence_loss(flow_preds: Sequence[torch.Tensor], flow_gt, valid,
     flow_preds: list of (B, 2, H, W); flow_gt (B, 2, H, W); valid (B, H, W).
     As the reference: each iteration's term averages the masked L1 over ALL
     pixels (invalid ones add zero to the sum only), the EPE metrics average
-    over valid pixels. Computed in float32."""
+    over valid pixels. Computed in float32 (float64 for a float64 model)."""
     n = len(flow_preds)
-    flow_gt = flow_gt.float()
+    dt = torch.promote_types(flow_preds[-1].dtype, torch.float32)
+    flow_gt = flow_gt.to(dt)
     mag = torch.sqrt(torch.sum(torch.square(flow_gt), dim=1))
     valid = (valid >= 0.5) & (mag < max_flow)
-    vf = valid.float()
+    vf = valid.to(dt)
     vmask = vf[:, None]
 
-    loss = torch.zeros((), device=flow_gt.device)
+    loss = torch.zeros((), dtype=dt, device=flow_gt.device)
     for i, pred in enumerate(flow_preds):
         w = gamma ** (n - i - 1)
-        loss = loss + w * torch.mean(vmask * torch.abs(pred.float() - flow_gt))
+        loss = loss + w * torch.mean(vmask * torch.abs(pred.to(dt) - flow_gt))
 
-    epe = torch.sqrt(torch.sum(torch.square(flow_preds[-1].float() - flow_gt), dim=1))
+    epe = torch.sqrt(torch.sum(torch.square(flow_preds[-1].to(dt) - flow_gt), dim=1))
     denom = torch.clamp(torch.sum(vf), min=1.0)
 
     def vmean(x):
-        return torch.sum(x.float() * vf) / denom
+        return torch.sum(x.to(dt) * vf) / denom
 
     metrics = {"epe": vmean(epe), "1px": vmean(epe < 1), "3px": vmean(epe < 3),
                "5px": vmean(epe < 5)}

@@ -18,8 +18,9 @@ subtree with `set_trainable`.
 The styled 3x3 convs (plain and polyphase x2 up) run in kernel B1 with their
 bias + leaky-ReLU epilogue fused; with noise injection B1 runs raw and the
 noise add is followed by kernel B2. The up conv's interleave runs in kernel
-B4; ToRGB's skip upsample and conv_layer's downsampling blur in kernel B3;
-conv_layer's activation in kernel B2. All five carry gradients.
+B4; ToRGB's skip upsample, conv_layer's downsampling blur and the blurs of
+the non-fused up and down modulated convs in kernel B3; conv_layer's
+activation in kernel B2. All five carry gradients, twice.
 Not ported (TPU-only): the space-to-depth packed stage variants and the
 cat2-split weight storage (fusion convs and the discriminator's final conv
 hold one merged weight).
@@ -35,7 +36,7 @@ import torch
 from torch import nn
 
 from vtoonify_tpu_torch.ops import kernels
-from vtoonify_tpu_torch.ops.convs import conv2d
+from vtoonify_tpu_torch.ops.convs import conv2d, conv_transpose2d
 from vtoonify_tpu_torch.ops.fused_act import fused_leaky_relu
 from vtoonify_tpu_torch.ops.upfirdn2d import blur, make_kernel, upsample_2x
 
@@ -43,17 +44,23 @@ BLUR_KERNEL = (1.0, 3.0, 3.0, 1.0)
 
 
 @functools.lru_cache(maxsize=None)
+@torch.inference_mode(False)
 def _blur_1d(blur_kernel: tuple) -> torch.Tensor:
     """The normalized 1-D blur taps, a CPU float32 constant built once per
-    kernel: B3 takes its taps from the host, by value."""
+    kernel: B3 takes its taps from the host, by value. Made outside
+    inference mode, so a first call under it leaves a constant that
+    autograd may save."""
     return make_kernel(blur_kernel)
 
 
 @functools.lru_cache(maxsize=None)
+@torch.inference_mode(False)
 def _upsample_blur_taps(blur_kernel: tuple, device, dtype) -> torch.Tensor:
     """`_compose_upsample_kernel`'s scatter of the x4-gain 2-D blur, on the
     weight's device, made once: a copy from pageable memory per call would
-    block the host until the stream drains; this pinned one does not."""
+    block the host until the stream drains; this pinned one does not. Made
+    outside inference mode: the up conv's weight gradient saves it, and a
+    serving call under inference mode may be the first to ask for it."""
     bk1 = make_kernel(blur_kernel)
     bk = torch.outer(bk1, bk1) * 4.0
     kt = bk.shape[0]
@@ -221,12 +228,18 @@ def _fused_upsample_weight(w_scaled, blur_kernel):
 
 
 def modulated_conv2d(p, x, style, demodulate=True, upsample=False,
-                     act_bias=None, blur_kernel: Sequence[float] = BLUR_KERNEL,
-                     eps: float = 1e-8):
+                     downsample=False, act_bias=None,
+                     blur_kernel: Sequence[float] = BLUR_KERNEL,
+                     eps: float = 1e-8, fuse_upsample: bool = True):
     """reference model.py:170-306, scale-activations formulation, with the
-    JAX package's shared-style weight fold (style batch 1, frame batch > 1)
-    and polyphase x2 up conv; downsampling is not ported. `act_bias` fuses
-    styled_conv's bias + leaky-ReLU into the 3x3 conv's epilogue."""
+    JAX package's shared-style weight fold (style batch 1, frame batch > 1).
+    The 3x3 conv and its polyphase x2 up conv (`fuse_upsample`, a 4-tap
+    blur) run in B1, the up conv's interleave in B4. Every other form is
+    plain torch around B3: the non-fused up conv (a stride-2 transposed
+    conv, then the x4-gain blur), the downsampling conv (the blur, then a
+    stride-2 conv) and the 1x1 and other sizes. `act_bias` adds
+    styled_conv's bias + leaky-ReLU: in B1's epilogue, or B2 after the
+    other forms."""
     w = p.weight
     cout, cin, kh, kw = w.shape
     scale = 1.0 / math.sqrt(cin * kh * kw)
@@ -251,23 +264,36 @@ def modulated_conv2d(p, x, style, demodulate=True, upsample=False,
         d_x = None if d is None else d.to(x.dtype).contiguous()
     bias = None if act_bias is None else act_bias.to(x.dtype).contiguous()
 
-    if kh == 1 and not upsample and bias is None:
-        # ToRGB's 1x1 conv: an XLA conv in the JAX package, plain torch here
-        out = conv2d(x if s_x is None else x * s_x[:, :, None, None], wsc)
-        return out if d_x is None else out * d_x[:, :, None, None]
-    if kh != 3 or (upsample and len(blur_kernel) != 4):
-        raise NotImplementedError("modulated conv: only 3x3 (plain or x2 "
-                                  "polyphase up with a 4-tap blur) and 1x1")
-    w_hwio = wsc.permute(2, 3, 1, 0)
-    x = x.contiguous()
-    if not upsample:
-        return kernels.modconv3x3(x, w_hwio.contiguous(), s_x, d_x, bias)
-    k_cat = _fused_upsample_weight(w_hwio, blur_kernel).contiguous()
-    # per-output-channel epilogue operands repeat per phase (o*4 + phase)
-    d4 = None if d_x is None else d_x.repeat_interleave(4, dim=1)
-    b4 = None if bias is None else bias.repeat_interleave(4)
-    y = kernels.modconv3x3(x, k_cat, s_x, d4, b4)
-    return depth_to_space2(y, phase_minor=True)
+    fused_up = fuse_upsample and len(blur_kernel) == 4
+    if kh == 3 and not downsample and (fused_up or not upsample):
+        w_hwio = wsc.permute(2, 3, 1, 0)
+        x = x.contiguous()
+        if not upsample:
+            return kernels.modconv3x3(x, w_hwio.contiguous(), s_x, d_x, bias)
+        k_cat = _fused_upsample_weight(w_hwio, blur_kernel).contiguous()
+        # per-output-channel epilogue operands repeat per phase (o*4 + phase)
+        d4 = None if d_x is None else d_x.repeat_interleave(4, dim=1)
+        b4 = None if bias is None else bias.repeat_interleave(4)
+        y = kernels.modconv3x3(x, k_cat, s_x, d4, b4)
+        return depth_to_space2(y, phase_minor=True)
+
+    if s_x is not None:
+        x = x * s_x[:, :, None, None]
+    if upsample:
+        out = conv_transpose2d(x, wsc.transpose(0, 1), stride=2, padding=0)
+        pd = (len(blur_kernel) - 2) - (kh - 1)
+        out = blur(out.contiguous(), _blur_1d(tuple(blur_kernel)),
+                   pad=((pd + 1) // 2 + 1, pd // 2 + 1), upsample_factor=2)
+    elif downsample:
+        pd = (len(blur_kernel) - 2) + (kh - 1)
+        x = blur(x.contiguous(), _blur_1d(tuple(blur_kernel)),
+                 pad=((pd + 1) // 2, pd // 2))
+        out = conv2d(x, wsc, stride=2)
+    else:  # ToRGB's 1x1 conv, and any other size: an XLA conv in JAX
+        out = conv2d(x, wsc, padding=kh // 2)
+    if d_x is not None:
+        out = out * d_x[:, :, None, None]
+    return out if bias is None else fused_leaky_relu(out, bias)
 
 
 class NoiseInjection(nn.Module):
@@ -404,11 +430,12 @@ def batch_norm_2d(p, x, eps: float = 1e-5):
 
 def batch_norm_2d_train(p, x, momentum: float = 0.1, eps: float = 1e-5):
     """nn.BatchNorm2d in train mode: normalize with the biased batch
-    statistics, computed in float32 (gradients flow through them), and
+    statistics, computed in float32 (float64 for a float64 x; gradients
+    flow through them), and
     update `p`'s running buffers in place with the unbiased variance at
     momentum 0.1 (RAFT trains its context encoder's batch norm on the
     'chairs' stage, reference model/raft/train.py:146-147)."""
-    xf = x.float()
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     mean = xf.mean(dim=(0, 2, 3))
     var = (xf - mean[None, :, None, None]).square().mean(dim=(0, 2, 3))  # biased
     inv = torch.rsqrt(var + eps) * p.weight

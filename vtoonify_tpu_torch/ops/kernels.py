@@ -23,14 +23,27 @@ sources), and bound with `ctypes`. Each wrapper counts its launches in a
 plain integer attribute, `<wrapper>.launches`.
 
 Gradients: each wrapper runs through a `torch.autograd.Function` whose
-forward dispatches as above and whose backward is plain PyTorch on every
-device (the JAX package has no backward Pallas kernel), except B3's, whose
-adjoint is upfirdn2d again and runs in its kernel; B2, B3, B4 and B5 take
-their Function only where autograd records the op (B1 always does). B1 and
-B5 recompute
-their plain version under `enable_grad` and call `torch.autograd.grad`; B2,
-B3 and B4 have hand-derived backwards (lrelu' from the saved output, the
-transposed upfirdn2d, the inverse permutation). No double backward.
+forward dispatches as above; B2, B3, B4 and B5 take their Function only where
+autograd records the op (B1 always does). The JAX package has no backward
+Pallas kernel, so the backwards are plain PyTorch on every device, except
+B3's, whose adjoint is upfirdn2d again and launches its kernel. Every
+Function is differentiable twice, as JAX differentiates these functions
+(R1 and the path-length penalty differentiate a gradient):
+  * B1 recomputes its plain version on views of the saved inputs and
+    calls `torch.autograd.grad` with `create_graph` exactly when the caller
+    asked for it (grad mode is on inside a backward only then), so the
+    gradient carries its history to them;
+  * B2's backward is a `where` on the saved output and a sum, B4's the
+    inverse permutation: plain ops, twice differentiable as they stand;
+  * B3's backward calls the Function again (no operand check: the
+    forward's holds), so the adjoint of the adjoint is a third launch of
+    the same kernel on the card;
+  * B5's image gradient W(coef)^T g is linear in g: `_AffineWarpAdjoint`
+    computes it (the F.grid_sample VJP) and its backward is the B5 forward
+    again. torch 2.11 has no derivative of grid_sampler_2d_backward, so a
+    second derivative that needs coef (through the coef gradient, or the
+    image gradient's dependence on coef) raises NotImplementedError.
+The forward stays the kernel whether or not a graph is recorded.
 
 Layouts and arithmetic: activations are NCHW and contiguous, in float32 or
 bfloat16. B2-B5 compute in float32 and load and store the caller's dtype.
@@ -224,14 +237,22 @@ def _records_grad(*ts):
 
 def _grads_by_recompute(plain, ctx, tensors, grad_out, *consts):
     """Backward of `plain(*tensors, *consts)` by recomputing it under
-    enable_grad: the gradient of every tensor input that needs one."""
+    enable_grad: the gradient of every tensor input that needs one. Each such
+    input enters through a view of itself, so that the gradient w.r.t. one
+    input counts only the paths through it (B1's d is a function of s:
+    `torch.autograd.grad` w.r.t. s itself would also count the path through
+    d, which autograd adds again at d). Inside a backward grad mode is on
+    exactly when the caller passed `create_graph`; then the gradient is built
+    with a graph back to the inputs and `grad_out` (a double backward)."""
     need = ctx.needs_input_grad[:len(tensors)]
     with torch.enable_grad():
-        leaves = [None if t is None else t.detach().requires_grad_(bool(n))
+        leaves = [t.view_as(t) if n and t is not None else t
                   for t, n in zip(tensors, need)]
         y = plain(*leaves, *consts)
     wanted = [t for t, n in zip(leaves, need) if n and t is not None]
-    got = iter(torch.autograd.grad(y, wanted, grad_out) if wanted else ())
+    got = iter(torch.autograd.grad(y, wanted, grad_out,
+                                   create_graph=torch.is_grad_enabled())
+               if wanted else ())
     return tuple(next(got) if n and t is not None else None
                  for t, n in zip(leaves, need))
 
@@ -289,7 +310,8 @@ def _modconv3x3_cuda(x, w, s, d, bias, negative_slope, gain):
 class _ModConv3x3(torch.autograd.Function):
     """Forward: the kernel (CUDA) or the plain version (CPU). Backward:
     recomputes the plain version under enable_grad and takes
-    torch.autograd.grad, for x, w, s, d and bias."""
+    torch.autograd.grad, for x, w, s, d and bias, with a graph when the
+    caller asked for one (`_grads_by_recompute`)."""
 
     @staticmethod
     def forward(ctx, x, w, s, d, bias, negative_slope, gain):
@@ -488,8 +510,9 @@ class _UpFirDn2d(torch.autograd.Function):
     """Backward by hand: the adjoint of upfirdn2d(x, k, up, down, pad) is
     upfirdn2d(g, flip(k), up=down, down=up) with the pads that give back the
     input size (the reference's UpFirDn2dBackward): the same kernel on the
-    card, the plain version on the CPU. The taps are constants (no
-    gradient)."""
+    card, the plain version on the CPU. It goes through this Function again
+    where autograd records (a double backward), so the adjoint of the
+    adjoint is the kernel too. The taps are constants (no gradient)."""
 
     @staticmethod
     def forward(ctx, x, k2d, up, down, pad):
@@ -505,9 +528,17 @@ class _UpFirDn2d(torch.autograd.Function):
         kh, kw = k2d.shape
         gpad = (kw - px0 - 1, w * up_x - ow * down_x + px0 - up_x + 1,
                 kh - py0 - 1, h * up_y - oh * down_y + py0 - up_y + 1)
-        gx = _upfirdn2d_forward(g.contiguous(), torch.flip(k2d, (0, 1)),
-                                (down_x, down_y), (up_x, up_y), gpad)
+        gx = _upfirdn2d_call(g.contiguous(), torch.flip(k2d, (0, 1)),
+                             (down_x, down_y), (up_x, up_y), gpad)
         return gx, None, None, None, None
+
+
+def _upfirdn2d_call(*args):
+    """`upfirdn2d` after its operand check: the Function where autograd
+    records, else the forward alone."""
+    if _records_grad(args[0]):
+        return _UpFirDn2d.apply(*args)
+    return _upfirdn2d_forward(*args)
 
 
 def upfirdn2d(x, k2d, up=(1, 1), down=(1, 1), pad=(0, 0, 0, 0)):
@@ -522,9 +553,7 @@ def upfirdn2d(x, k2d, up=(1, 1), down=(1, 1), pad=(0, 0, 0, 0)):
     """
     args = (x, k2d, tuple(up), tuple(down), tuple(pad))
     _upfirdn2d_args(*args)
-    if _records_grad(x):
-        return _UpFirDn2d.apply(*args)
-    return _upfirdn2d_forward(*args)
+    return _upfirdn2d_call(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -636,6 +665,34 @@ def affine_warp_plain(img, coef, out_hw):
     return out.to(img.dtype).contiguous()
 
 
+def affine_warp_gather_plain(img, coef, out_hw):
+    """The warp of `affine_warp_plain` by explicit gathers of the four
+    neighbours on the pixel coordinates (the kernel's own arithmetic),
+    differentiable twice in img and coef on every torch version: the
+    second-order oracle of B5 (torch 2.11 has no derivative of
+    grid_sampler_2d_backward). Not on any path."""
+    n, c, h, w = img.shape
+    ho, wo = out_hw
+    dt = torch.promote_types(img.dtype, torch.float32)
+    coef = coef.to(dt)
+    i = torch.arange(wo, dtype=dt, device=img.device)[None, None, :]
+    j = torch.arange(ho, dtype=dt, device=img.device)[None, :, None]
+    ax, bx, cx, ay, by, cy = (v[:, None, None] for v in coef.unbind(1))
+    fx, fy = ax * i + bx * j + cx, ay * i + by * j + cy
+    x0, y0 = torch.floor(fx), torch.floor(fy)
+    wx, wy = fx - x0, fy - y0
+    flat = img.to(dt).reshape(n, c, h * w)
+    out = 0
+    for dy, dx, wt in ((0, 0, (1 - wx) * (1 - wy)), (0, 1, wx * (1 - wy)),
+                       (1, 0, (1 - wx) * wy), (1, 1, wx * wy)):
+        xi, yi = x0 + dx, y0 + dy
+        inside = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).long()
+        vals = flat.gather(2, idx.reshape(n, 1, ho * wo).expand(n, c, ho * wo))
+        out = out + vals.reshape(n, c, ho, wo) * (wt * inside)[:, None]
+    return out.to(img.dtype)
+
+
 def _affine_warp_args(img, coef, out_hw):
     """B5's operand rule, held on every device: float32 coefficients
     (N, 6) beside the image, planes indexed in 32 bits."""
@@ -672,9 +729,10 @@ def _affine_warp_forward(img, coef, out_hw):
 
 
 class _AffineWarp(torch.autograd.Function):
-    """Backward: recomputes the plain version (F.grid_sample) under
-    enable_grad and takes torch.autograd.grad, for img and coef — the
-    grid_sample VJP, as the JAX package's custom_vjp does."""
+    """Backward: the F.grid_sample VJP, as the JAX package's custom_vjp
+    takes it. The image gradient goes through `_AffineWarpAdjoint` (twice
+    differentiable in the incoming gradient), the coef gradient through
+    `_AffineWarpCoefGrad` (once only)."""
 
     @staticmethod
     def forward(ctx, img, coef, out_hw):
@@ -684,21 +742,77 @@ class _AffineWarp(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        grads = _grads_by_recompute(affine_warp_plain, ctx, ctx.saved_tensors,
-                                    g, ctx.out_hw)
-        return grads + (None,)
+        img, coef = ctx.saved_tensors
+        gimg = gcoef = None
+        if ctx.needs_input_grad[0]:
+            gimg = _AffineWarpAdjoint.apply(g, coef, img.detach(), ctx.out_hw)
+        if ctx.needs_input_grad[1]:
+            gcoef = _AffineWarpCoefGrad.apply(g, img, coef, ctx.out_hw)
+        return gimg, gcoef, None
+
+
+_COEF_SECOND_ORDER = (
+    "affine_warp: a second derivative that involves coef is not implemented "
+    "(torch 2.11 has no derivative of grid_sampler_2d_backward); differentiate "
+    "twice with coef as a constant (requires_grad=False)")
+
+
+class _AffineWarpAdjoint(torch.autograd.Function):
+    """W(coef)^T g, the image gradient of B5 (the F.grid_sample VJP, plain
+    PyTorch on every device). It is linear in g and does not depend on the
+    image's values (`img` gives its shape and dtype), so its backward is the
+    B5 forward again: the kernel on the card. Its dependence on coef has no
+    derivative in torch 2.11, so that one raises."""
+
+    @staticmethod
+    def forward(ctx, g, coef, img, out_hw):
+        ctx.save_for_backward(coef)
+        ctx.out_hw = out_hw
+        with torch.enable_grad():
+            leaf = img.detach().requires_grad_()
+            y = affine_warp_plain(leaf, coef.detach(), out_hw)
+        return torch.autograd.grad(y, leaf, g)[0]
+
+    @staticmethod
+    def backward(ctx, gg):
+        if ctx.needs_input_grad[1]:
+            raise NotImplementedError(_COEF_SECOND_ORDER)
+        (coef,) = ctx.saved_tensors
+        return _affine_warp_call(gg.contiguous(), coef, ctx.out_hw), None, None, None
+
+
+class _AffineWarpCoefGrad(torch.autograd.Function):
+    """The coef gradient of B5 (the F.grid_sample VJP); differentiating it
+    again raises (torch 2.11 has no derivative of grid_sampler_2d_backward)."""
+
+    @staticmethod
+    def forward(ctx, g, img, coef, out_hw):
+        with torch.enable_grad():
+            leaf = coef.detach().requires_grad_()
+            y = affine_warp_plain(img.detach(), leaf, out_hw)
+        return torch.autograd.grad(y, leaf, g)[0]
+
+    @staticmethod
+    def backward(ctx, gg):
+        raise NotImplementedError(_COEF_SECOND_ORDER)
+
+
+def _affine_warp_call(img, coef, out_hw):
+    """`affine_warp` after its operand check: the Function where autograd
+    records, else the forward alone."""
+    if _records_grad(img, coef):
+        return _AffineWarp.apply(img, coef, out_hw)
+    return _affine_warp_forward(img, coef, out_hw)
 
 
 def affine_warp(img, coef, out_hw):
     """Bilinear warp with zero padding: img (N, C, H, W) float32/bfloat16;
     coef (N, 6) float32 pixel-space affine [ax, bx, cx, ay, by, cy] (see
     `affine_warp_grid`); returns (N, C, Ho, Wo) in img's dtype. No bound on
-    the affine's scale."""
+    the affine's scale. Differentiable twice in img; once in coef."""
     out_hw = tuple(int(v) for v in out_hw)
     _affine_warp_args(img, coef, out_hw)
-    if _records_grad(img, coef):
-        return _AffineWarp.apply(img, coef, out_hw)
-    return _affine_warp_forward(img, coef, out_hw)
+    return _affine_warp_call(img, coef, out_hw)
 
 
 KERNELS = (modconv3x3, fused_leaky_relu, upfirdn2d, depth_to_space2,
