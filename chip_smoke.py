@@ -11,6 +11,8 @@
     python3 chip_smoke.py --raft    # RAFT training and evaluation alone
     python3 chip_smoke.py --reg     # the regularisers, full ADA and the
                                     # auxiliary models alone
+    python3 chip_smoke.py --dist    # frame-parallel serving and
+                                    # data-parallel training alone
 
 Builds the port's five hand-written kernels from vtoonify_tpu_torch/csrc
 with nvcc (sm_90a, one nvcc per source, in parallel), checks each against its
@@ -79,7 +81,17 @@ with random weights from a seeded torch.Generator:
   (augment, D, d_r1_loss, backward, Adam) and one path-length G step
   (mixing_noise, g_path_regularize, backward, Adam) of the flagship
   StyleGAN2 at 1024 px, batch 4 (path batch 2), in rosinality
-  stylegan2-pytorch's recipe, float32, timed and profiled.
+  stylegan2-pytorch's recipe, float32, timed and profiled; B5's second
+  derivative in its coefficients against affine_warp_gather_plain;
+* distributed: frame-parallel serving (ToonifyPipeline over a mesh of two
+  replicas on cuda:0, bit-equal to one device, and over every visible
+  card, timed beside one device at batch 16, bf16) and data-parallel
+  training: the flagship D stage-2 step (bf16, global batch 2) without a
+  process group and under a 1-rank NCCL group (bit-equal; timed, the
+  all-reduce profiled), and over 2 gloo ranks with CUDA tensors sharing
+  cuda:0 (this script started again as `--dist-rank R PORT DIR`, 1 row
+  each), held to the 1-process step, with the --tiny T stage-2 step the
+  same way.
 
 Each phase prints one JSON object on a line of its own with its wall
 seconds; the line before the last holds the per-kernel summary, and the last
@@ -134,6 +146,53 @@ STYLE_REL_L2 = 1e-4
 # the engine's frames vs process_batch on the same batches: the same calls,
 # but cuDNN may pick another algorithm for the ragged last batch
 ENGINE_MAX_LSB = 1
+# data-parallel steps against one process on the same global batch: relative
+# L2 of the new parameters, the EMA and the metrics (float32 sums and the
+# gradient mean over ranks in another order)
+DIST_REL_L2 = 1e-5
+# the gates on _dist_compare's readings: (key, "<=" or ">=", bound); "{k}"
+# stands for the student's ("trainable") and D's ("d") parameters. The
+# --tiny T step and the flagship D step's metrics and EMA in float32 are
+# held to DIST_REL_L2. The flagship's gradients are not: a rank of one row
+# rounds the teacher synthesis and every conv as batch 1, and the step's
+# float32 gradients move by 1.4e-5-4.1e-5 relative L2 from that alone
+# (the witness `synthesis_per_row`, one process; the H100 read the 2 ranks
+# 3.7e-5 / 1.8e-5); in float64 on the CPU the 2 ranks equal one process
+# (`python tests/_torch_parallel_worker.py witness DIR`: 3e-16, 1.4e-15).
+# So their bounds are set at ~3x those readings, and each 2-rank gradient
+# gap is held to DIST_WITNESS_RATIO x the larger witness's. The updates:
+# every element within 2 lr; on the mask of tests/test_torch_train_step.py
+# its element bounds (0.02 lr, 1% above 1e-3 lr) in float32, over at least
+# 5% of the elements (the card-vs-CPU step gate's floor: only 12.4% of the
+# student's and 10.4% of D's flagship elements have |g| > 100 eps, so the
+# test's 25% cannot be reached). bf16: the gradients, the updates' 2 lr, the
+# metrics and the EMA at ~3-10x their readings.
+DIST_GATES = (
+    *[(f"two_ranks_t_{r}", "<=", DIST_REL_L2)
+      for r in ("metrics_rel_l2", "ema_rel_l2", "{k}_grad_rel_l2", "{k}_rel_l2")],
+    ("two_ranks_t_{k}_max_err_over_lr", "<=", 2.001),
+    *[(f"two_ranks_d_f32_{r}", "<=", DIST_REL_L2) for r in ("metrics_rel_l2", "ema_rel_l2")],
+    ("two_ranks_d_f32_{k}_grad_rel_l2", "<=", 1e-4),
+    ("two_ranks_d_f32_{k}_max_err_over_lr", "<=", 2.001),
+    ("two_ranks_d_f32_{k}_masked_rel_l2", "<=", DIST_REL_L2),
+    ("two_ranks_d_f32_{k}_masked_max_err_over_lr", "<=", 0.02),
+    ("two_ranks_d_f32_{k}_masked_share_over_1e-3_lr", "<=", 1e-2),
+    ("two_ranks_d_f32_mask_share", ">=", 0.05),
+    *[(f"two_ranks_d_{r}", "<=", 5e-5) for r in ("metrics_rel_l2", "ema_rel_l2")],
+    ("two_ranks_d_trainable_grad_rel_l2", "<=", 2e-2),
+    ("two_ranks_d_d_grad_rel_l2", "<=", 0.1),
+    ("two_ranks_d_{k}_max_err_over_lr", "<=", 2.001),
+)
+DIST_WITNESSES = ("rows_swapped", "synthesis_per_row")
+DIST_WITNESS_RATIO = 3.0
+DIST_BATCH, DIST_TINY_BATCH = 2, 4  # global batches: flagship D, --tiny T
+DIST_DEADLINE_S = 400  # the 2-rank workers, from their start
+# frame-parallel serving against one device at the whole batch: cuDNN picks
+# other conv algorithms at batch 8 than at 16 (the encoder's and BiSeNet's
+# bf16 convs round differently; the H100 read 4 LSB, mean 3.1e-4), so not
+# bit-equal: bounded at that reading; against one device on the same 8
+# frames, bit-equal
+DP_SERVE_MAX_LSB, DP_SERVE_MEAN_LSB = 4, 1e-3
 ENGINE_FRAMES, ENGINE_TIMED_FRAMES, ENGINE_BATCH, ENGINE_PX = 40, 160, 16, 256
 
 # pipeline_options: batch-16 packed/unpacked at the 256 px serving crop, the
@@ -2857,6 +2916,43 @@ def second_order_gates(dev):
         check(launches > 0, f"{name}: its second order launched no kernel")
         del got, want, v1, v2
         torch.cuda.empty_cache()
+    rec["affine_warp_coef"] = affine_warp_coef_second_order(dev, rng)
+    return rec
+
+
+def affine_warp_coef_second_order(dev, rng):
+    """B5 differentiated twice in its image and its coefficients together
+    (the coef gradient's derivative and the image gradient's dependence on
+    coef), through the wrapper on the card against the same through
+    affine_warp_gather_plain on the card: the x2 augment plane of a 256 px
+    image under a scaled affine, float32, TOL_WARP_F32."""
+    from vtoonify_tpu_torch.ops import kernels as K
+    from vtoonify_tpu_torch.train import augment as A
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+
+    hw2x = (2 * 256 + 8, 2 * 256 + 8)
+    theta, out_hw = A.warp_theta(torch.eye(3).repeat(2, 1, 1), (256, 256), hw2x)
+    theta[:, :, :2] = theta[:, :, :2] * 1.07
+    coef = A._pixel_affine_coefs(theta, out_hw, hw2x).to(dev).contiguous()
+    inputs = (torch.tanh(t(2, 6, *hw2x)), coef)
+    v1, v2 = t(2, 6, *out_hw), [t(2, 6, *hw2x), t(2, 6)]
+    K.reset_launch_counts()
+    got = _second_order(lambda i, c: K.affine_warp(i, c, out_hw), inputs, v1, v2)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()["affine_warp"]
+    want = _second_order(lambda i, c: K.affine_warp_gather_plain(i, c, out_hw),
+                         inputs, v1, v2)
+    errs = [(a - b).abs().max().item() / max(1.0, b.abs().max().item())
+            for a, b in zip(got, want)]
+    rec = {"shape": f"(2,6,{hw2x[0]},{hw2x[1]}) -> {out_hw}, coef (2,6)",
+           "max_rel_err": max(errs), "coef_rel_err": errs[-2], "tol": TOL_WARP_F32,
+           "launches": launches,
+           "finite": all(bool(torch.isfinite(a).all()) for a in got)}
+    check(rec["finite"] and max(errs) <= TOL_WARP_F32,
+          f"affine_warp second order in coef: {rec}")
+    check(launches > 0, "affine_warp: its second order in coef launched no kernel")
     return rec
 
 
@@ -3130,12 +3226,509 @@ def regularise_phase(smi):
     return dict(total)
 
 
+# ---------------------------------------------------------------------------
+# distributed: frame-parallel serving and data-parallel training
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def dist_serving(smi):
+    """The flagship pipeline (bf16, batch 16) over a mesh of two replicas on
+    cuda:0: bit-equal to the pipeline without a mesh on each replica's 8
+    frames, within DP_SERVE_*_LSB of it on all 16 at once; both timed in
+    turns, and the mesh over every visible card. Returns the record and the
+    launches of one frame-parallel call."""
+    from vtoonify_tpu_torch.ops import kernels as K
+    from vtoonify_tpu_torch.parallel.mesh import make_mesh
+    from vtoonify_tpu_torch.pipeline.toonify import ToonifyPipeline
+
+    t0 = time.perf_counter()
+    cfg, vt, parsing = build_modules()
+    build_s = time.perf_counter() - t0
+    rng = np.random.RandomState(SEED + 40)
+    frames = rng.randint(0, 256, (16, 256, 256, 3)).astype(np.uint8)
+    s_w = rng.randn(1, cfg.n_latent, 512).astype(np.float32)
+    pipes = {"one_device": ToonifyPipeline(vt, cfg, parsing),
+             "mesh_2x_cuda0": ToonifyPipeline(vt, cfg, parsing, mesh=make_mesh(
+                 devices=["cuda:0", "cuda:0"])),
+             "mesh_all_cards": ToonifyPipeline(vt, cfg, parsing, mesh=make_mesh())}
+    del vt, parsing
+    dp = pipes["mesh_2x_cuda0"]
+    check(len(dp._replicas) == 2, "the mesh pipeline did not make two replicas")
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    out_dp = dp.process_batch(frames, s_w, 0.5)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    one = pipes["one_device"]
+    out_one = one.process_batch(frames, s_w, 0.5)
+    out_halves = torch.cat([one.process_batch(frames[i:i + 8], s_w, 0.5) for i in (0, 8)])
+    diff = (out_dp.int() - out_one.int()).abs()
+    rec = {"config": "VToonifyConfig() + BiSeNet, bf16, batch 16, 256 -> 1024 px",
+           "build_seconds": build_s, "launches_per_call": launches,
+           "bit_equal_per_replica_batch": bool(torch.equal(out_dp, out_halves)),
+           "bit_equal_batch_16": bool(torch.equal(out_dp, out_one)),
+           "vs_batch_16_max_lsb": diff.max().item(),
+           "vs_batch_16_mean_lsb": diff.float().mean().item(),
+           "bound_max_mean_lsb": [DP_SERVE_MAX_LSB, DP_SERVE_MEAN_LSB],
+           "out_std_lsb": out_dp.float().std().item(),
+           "cards_visible": torch.cuda.device_count()}
+    check(tuple(out_dp.shape) == (16, 1024, 1024, 3) and out_dp.dtype == torch.uint8,
+          f"frame-parallel output {tuple(out_dp.shape)} {out_dp.dtype}")
+    for name in ("modconv3x3", "fused_leaky_relu", "upfirdn2d", "depth_to_space2"):
+        check(launches[name] > 0, f"kernel {name} was not launched by frame-parallel serving")
+    check(rec["bit_equal_per_replica_batch"] and rec["out_std_lsb"] > 10
+          and rec["vs_batch_16_max_lsb"] <= DP_SERVE_MAX_LSB
+          and rec["vs_batch_16_mean_lsb"] <= DP_SERVE_MEAN_LSB,
+          f"frame-parallel pipeline differs from one device: {rec}")
+    for name in ("one_device", "mesh_2x_cuda0", "one_device", "mesh_2x_cuda0",
+                 "mesh_all_cards"):
+        ms = host_ms(lambda: pipes[name].process_batch(frames, s_w, 0.5), reps=5)
+        rec.setdefault(f"{name}_ms_per_call", []).append(ms)
+    for name in pipes:
+        rec[f"{name}_fps"] = 16e3 / float(np.median(rec[f"{name}_ms_per_call"]))
+    del pipes, dp, one, out_dp, out_one, out_halves
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def _dist_setup(compute_dtype="bfloat16"):
+    """train_phase's flagship stage-2 configuration, global batch
+    DIST_BATCH: CPU modules from one seed, the same in every process."""
+    from vtoonify_tpu_torch.models.vtoonify import CondDiscriminatorConfig, VToonifyConfig
+    from vtoonify_tpu_torch.train.steps import TrainDConfig
+
+    cfg = VToonifyConfig()
+    dcfg = CondDiscriminatorConfig(size=256, channel_multiplier=2, use_condition=True,
+                                   style_num=4)
+    tcfg = TrainDConfig(compute_dtype=compute_dtype)
+    pcfg, mods, inputs = train_setup(cfg, dcfg, tcfg, DIST_BATCH,
+                                     torch.Generator().manual_seed(SEED + 41))
+    return (cfg, dcfg, tcfg, pcfg), mods, inputs
+
+
+def _tiny_t_setup():
+    """The trainers' --tiny VToonify-T stage-2 configuration (float32),
+    global batch DIST_TINY_BATCH, noise weights and biases non-zero."""
+    from vtoonify_tpu_torch.models.generator import init_generator
+    from vtoonify_tpu_torch.models.vtoonify import CondDiscriminatorConfig, VToonifyConfig
+    from vtoonify_tpu_torch.train.steps import TrainDConfig
+
+    g = torch.Generator().manual_seed(SEED + 42)
+    cfg = VToonifyConfig(backbone="toonify", **TINY_VT)
+    dcfg = CondDiscriminatorConfig(size=64, channel_multiplier=1)
+    tcfg = TrainDConfig(crop_size=96, lpips_size=64, aug_max_pad=40)
+    pcfg, mods, inputs = train_setup(cfg, dcfg, tcfg, DIST_TINY_BATCH, g)
+    mods["base"] = init_generator(cfg.generator, g)
+    with torch.no_grad():
+        for gen in (mods["base"], mods["vt"].generator):
+            for blk in [gen.conv1, *gen.convs]:
+                blk.noise.weight.fill_(0.1)
+                blk.act_bias.normal_(0.0, 0.3, generator=g)
+    return (cfg, dcfg, tcfg, pcfg), mods, inputs
+
+
+def _state_result(state, metrics):
+    """_step_result without a time: metrics, new parameters and gradients
+    of the student and the discriminator, sizes, EMA."""
+    return _step_result(state, metrics, None)
+
+
+def _dist_compare(rec, prefix, got, ref, lr):
+    """A one-process or 2-rank step's results against a one-process step's
+    on the same global batch, recorded in `rec` under `prefix`: the relative
+    L2 of the metrics, the EMA, the gradients (Adam's first moment over 1 -
+    beta1: what data parallelism averages) and the new parameters; the
+    largest update difference over lr; and Adam's first updates as
+    tests/test_torch_train_step.py compares them, on the elements whose |g|
+    is above 1e-3 of its parameter's largest and above 100 eps (Adam's
+    first step moves every element by ~lr whatever its gradient, so one
+    whose gradient is at the rounding noise moves by +-lr either side):
+    their relative L2, largest difference over lr and share above 1e-3 lr,
+    and the share of the elements of both optimizers they cover."""
+    from vtoonify_tpu_torch.train.steps import ADAM_EPS
+
+    keys = sorted(ref["metrics"])
+    rec[f"{prefix}metrics_rel_l2"] = _rel_l2(
+        torch.tensor([got["metrics"][k] for k in keys], dtype=torch.float64),
+        torch.tensor([ref["metrics"][k] for k in keys], dtype=torch.float64))
+    rec[f"{prefix}ema_rel_l2"] = _rel_l2(got["ema"], ref["ema"])
+    covered = total = 0
+    for k in ref["new"]:
+        rec[f"{prefix}{k}_grad_rel_l2"] = _rel_l2(got["grads"][k], ref["grads"][k])
+        rec[f"{prefix}{k}_rel_l2"] = _rel_l2(got["new"][k], ref["new"][k])
+        err = (got["new"][k] - ref["new"][k]).abs()  # the same start
+        rec[f"{prefix}{k}_max_err_over_lr"] = err.max().item() / lr
+        mask = torch.cat([(gi > 1e-3 * gi.max()) & (gi > 100 * ADAM_EPS)
+                          for gi in ref["grads"][k].abs().split(ref["sizes"][k])])
+        e = err[mask]
+        rec[f"{prefix}{k}_masked_rel_l2"] = _rel_l2(got["new"][k][mask], ref["new"][k][mask])
+        rec[f"{prefix}{k}_masked_max_err_over_lr"] = e.max().item() / lr if e.numel() else 0.0
+        rec[f"{prefix}{k}_masked_share_over_1e-3_lr"] = (
+            (e > 1e-3 * lr).float().mean().item() if e.numel() else 0.0)
+        covered, total = covered + int(mask.sum()), total + mask.numel()
+    rec[f"{prefix}mask_share"] = covered / total
+
+
+def _dist_gate_failures(rec):
+    """{key: (reading, bound)} of every DIST_GATES reading out of bounds,
+    and of every flagship 2-rank gradient gap above DIST_WITNESS_RATIO x
+    its witnesses' larger one."""
+    bad = {}
+    for key, op, bound in DIST_GATES:
+        for name in {key.format(k=k) for k in ("trainable", "d")}:
+            v = rec[name]
+            if not (v <= bound if op == "<=" else v >= bound):
+                bad[name] = (v, bound)
+    for which in ("d", "d_f32"):
+        for k in ("trainable", "d"):
+            name = f"two_ranks_{which}_{k}_grad_rel_l2"
+            bound = DIST_WITNESS_RATIO * max(rec[f"witness_{which}_{w}_{k}_grad_rel_l2"]
+                                             for w in DIST_WITNESSES)
+            if not rec[name] <= bound:
+                bad[f"{name}_vs_witnesses"] = (rec[name], bound)
+    return bad
+
+
+@contextlib.contextmanager
+def synthesis_row_by_row():
+    """The stage-2 teacher synthesis (synth.synth_train_batch) run a row of
+    the batch at a time, its outputs concatenated: the same function (the
+    synthesis is per row), rounded as a rank of one row rounds it."""
+    from vtoonify_tpu_torch.train import synth
+
+    real = synth.synth_train_batch
+
+    def per_row(draws, vt, cfg, parsing, psp, psp_cfg, latent_avg, directions, style,
+                d_s, weights, wc_prev, *args, **kw):
+        outs = [real(draws._map(lambda t: t[i:i + 1]), vt, cfg, parsing, psp, psp_cfg,
+                     latent_avg, directions, style[i:i + 1], d_s, weights,
+                     wc_prev[i:i + 1], *args, **kw) for i in range(len(style))]
+        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+    synth.synth_train_batch = per_row
+    try:
+        yield
+    finally:
+        synth.synth_train_batch = real
+
+
+def _dist_witnesses(rec, prefix, setup, mods_cpu, inputs, ref, lr):
+    """Where a 2-rank step's gap to `ref` comes from: two one-process steps
+    of the same function on the same global batch with other float
+    rounding, each compared with `ref` as the 2-rank step is.
+    `rows_swapped` takes the global batch's rows (and every draw's) in the
+    other order: the step is symmetric in its rows, only the order of the
+    sums over the batch changes. `synthesis_per_row` runs the teacher
+    synthesis a row at a time, as each rank of one row does
+    (synthesis_row_by_row). Returns {witness: its results}."""
+    from vtoonify_tpu_torch.train import steps as S
+
+    cfg, dcfg, tcfg, pcfg = setup
+    results = {}
+    for name in DIST_WITNESSES:
+        mods = copy.deepcopy(mods_cpu)
+        flip = (lambda t: t.flip(0)) if name == "rows_swapped" else (lambda t: t)
+        draws = S.sample_train_d_draws(torch.Generator().manual_seed(SEED + 43), DIST_BATCH,
+                                       cfg, tcfg, inputs["directions"].shape[0],
+                                       device="cuda")._map(flip)
+        state = S.init_train_d_state(mods["vt"], mods["d"], DIST_BATCH, cfg, tcfg)
+        _, frozen = S.split_trainable(mods["vt"])
+        torch.backends.cudnn.deterministic = True
+        try:
+            with (synthesis_row_by_row() if name == "synthesis_per_row"
+                  else contextlib.nullcontext()):
+                metrics = S.train_d_step(
+                    state, frozen, mods["parsing"], mods["psp"], pcfg, None, mods["lpips"],
+                    cfg, dcfg, tcfg, inputs["directions"], flip(inputs["style"]),
+                    flip(inputs["style_ind"]), 0.5, inputs["weights"], 0.3, 0.5, False,
+                    draws=draws)
+            results[name] = _state_result(state, metrics)
+            _dist_compare(rec, f"{prefix}{name}_", results[name], ref, lr)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        del state, frozen, mods
+        torch.cuda.empty_cache()
+    return results
+
+
+def _dist_d_steps(setup, mods, inputs, seed=SEED + 43):
+    """init_train_d_state on the card; returns the state and a function
+    that runs one flagship D step of this rank's rows (the draws of the
+    global batch from a CPU generator seeded `seed`)."""
+    from vtoonify_tpu_torch.parallel import collectives as C
+    from vtoonify_tpu_torch.train import steps as S
+
+    cfg, dcfg, tcfg, pcfg = setup
+    style, ind = C.local_rows(inputs["style"]), C.local_rows(inputs["style_ind"])
+    state = S.init_train_d_state(mods["vt"], mods["d"], len(style), cfg, tcfg)
+    _, frozen = S.split_trainable(mods["vt"])
+    gen = torch.Generator().manual_seed(seed)
+
+    def step():
+        return S.train_d_step(state, frozen, mods["parsing"], mods["psp"], pcfg, None,
+                              mods["lpips"], cfg, dcfg, tcfg, inputs["directions"],
+                              style, ind, 0.5, inputs["weights"], 0.3, 0.5, False,
+                              generator=gen)
+    return state, step
+
+
+def _tiny_t_step(setup, mods, inputs, seed=SEED + 44):
+    from vtoonify_tpu_torch.train import steps as S
+
+    cfg, dcfg, tcfg, pcfg = setup
+    state = S.init_train_t_state(mods["vt"], mods["d"], tcfg)
+    _, frozen = S.split_trainable(mods["vt"])
+    metrics = S.train_t_step(state, frozen, mods["base"], mods["parsing"], mods["psp"],
+                             pcfg, None, mods["lpips"], cfg, dcfg, tcfg,
+                             inputs["directions"], DIST_TINY_BATCH, 0.3,
+                             generator=torch.Generator().manual_seed(seed))
+    return _state_result(state, metrics)
+
+
+def _gather_grad_timer():
+    """Wraps collectives.gather_grad so that each call's host wall, ending
+    in a synchronize, is recorded; returns (the list of ms, undo)."""
+    from vtoonify_tpu_torch.parallel import collectives as C
+
+    ms, real = [], C.gather_grad
+
+    def timed(grads):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = real(grads)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    C.gather_grad = timed
+
+    def undo():
+        C.gather_grad = real
+    return ms, undo
+
+
+def dist_rank_main(rank, port, out_dir):
+    """One rank of the 2-rank job (gloo with CUDA tensors, both ranks on
+    cuda:0): the first flagship D step on its row in bf16 (its gradient
+    all-reduces timed) and in float32, and one --tiny T step on its two
+    rows, saved to out_dir/rank{rank}.pt."""
+    from vtoonify_tpu_torch.ops import kernels as K
+    from vtoonify_tpu_torch.parallel import multihost
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    K._library()
+    multihost.initialize(f"127.0.0.1:{port}", 2, rank, device="cuda:0", backend="gloo")
+    try:
+        res = {}
+        setup, mods, inputs = _dist_setup()
+        torch.cuda.reset_peak_memory_stats()
+        state, step = _dist_d_steps(setup, mods, inputs)
+        ms, undo = _gather_grad_timer()
+        try:
+            res["d"] = _state_result(state, step())
+        finally:
+            undo()
+        res["d_gather_grad_ms"] = ms
+        res["d_max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del state, step, mods
+        setup, mods, inputs = _dist_setup(None)
+        state, step = _dist_d_steps(setup, mods, inputs)
+        res["d_f32"] = _state_result(state, step())
+        del state, step, mods
+        torch.cuda.empty_cache()
+        setup, mods, inputs = _tiny_t_setup()
+        res["t"] = _tiny_t_step(setup, mods, inputs)
+        torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        multihost.shutdown()
+
+
+def _nccl_allreduce_ms(fn):
+    """Device ms of NCCL's kernels in one fn() under torch.profiler, and
+    their count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    key = ("self_device_time_total" if hasattr(avgs[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    nccl = [e for e in avgs if "nccl" in e.key.lower()
+            and str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return (sum(getattr(e, key) for e in nccl) / 1e3,
+            sum(e.count for e in nccl), [e.key[:80] for e in nccl])
+
+
+def dist_training(smi):
+    """The flagship D stage-2 step (bf16, global batch 2) without a process
+    group and under a 1-rank NCCL group: the first step of each with cuDNN
+    deterministic, bit-equal; then 1 warm-up and 3 timed steps each, and
+    one NCCL step profiled for its all-reduce. Then the same first step in
+    float32 (TF32 off), and the witnesses of both dtypes (_dist_witnesses);
+    then that first step over 2 gloo ranks sharing cuda:0 with CUDA tensors
+    (1 row each), in bf16 and in float32, and the --tiny T stage-2 step
+    (float32) over the same 2 ranks, each against one process
+    (_dist_compare) and held to DIST_GATES. Returns the record, the
+    launches of one step under the process group and the checks that
+    failed."""
+    from vtoonify_tpu_torch.ops import kernels as K
+    from vtoonify_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    setup, mods_cpu, inputs = _dist_setup()
+    rec = {"config": "train_phase's: VToonifyConfig() + CondDiscriminatorConfig(256, 2, "
+                     "use_condition, style_num=4) + pSp + LPIPS + BiSeNet, "
+                     f"TrainDConfig(compute_dtype='bfloat16'), global batch {DIST_BATCH}; "
+                     f"--tiny T stage 2 at global batch {DIST_TINY_BATCH}, float32",
+           "setup_seconds": time.perf_counter() - t0, "nvidia_smi": smi}
+    first, launches = {}, {}
+    for mode in ("no_group", "nccl_world_1"):
+        if mode == "nccl_world_1":
+            multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda")
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            state, step = _dist_d_steps(setup, copy.deepcopy(mods_cpu), inputs)
+            torch.backends.cudnn.deterministic = True
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            first[mode] = _state_result(state, step())
+            torch.cuda.synchronize()
+            launches[mode] = K.launch_counts()
+            torch.backends.cudnn.deterministic = False
+            times = []
+            for i in range(4):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t1)
+            rec[f"{mode}_s_per_iter"] = times[1:]
+            rec[f"{mode}_p50_s_per_iter"] = float(np.median(times[1:]))
+            rec[f"{mode}_max_memory_allocated_gib"] = (torch.cuda.max_memory_allocated()
+                                                       / 2**30)
+            if mode == "nccl_world_1":
+                ms, n, names = _nccl_allreduce_ms(step)
+                rec["nccl_world_1_allreduce_device_ms"] = ms
+                rec["nccl_world_1_allreduce_kernels"] = n
+                rec["nccl_kernel_names"] = names
+            del state, step
+            torch.cuda.empty_cache()
+        finally:
+            multihost.shutdown()
+    for k in ("trainable", "d"):
+        rec[f"nccl_world_1_bit_equal_{k}"] = bool(torch.equal(
+            first["no_group"]["new"][k], first["nccl_world_1"]["new"][k]))
+    rec["nccl_world_1_bit_equal_ema"] = bool(torch.equal(first["no_group"]["ema"],
+                                                         first["nccl_world_1"]["ema"]))
+    rec["nccl_world_1_bit_equal_metrics"] = (first["no_group"]["metrics"]
+                                             == first["nccl_world_1"]["metrics"])
+    for name in SOURCES:
+        check(launches["nccl_world_1"][name] > 0,
+              f"kernel {name} was not launched by the step under the process group")
+
+    # the float32 first step (TF32 off, cuDNN deterministic), the 2-rank
+    # job's float32 reference; then the witnesses of both dtypes
+    torch.backends.cudnn.deterministic = True
+    try:
+        f32_setup, f32_mods, _ = _dist_setup(None)
+        state, step = _dist_d_steps(f32_setup, copy.deepcopy(f32_mods), inputs)
+        first["f32"] = _state_result(state, step())
+        del state, step
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    lr = setup[2].lr
+    witness = {"d": _dist_witnesses(rec, "witness_d_", setup, mods_cpu, inputs,
+                                    first["no_group"], lr),
+               "d_f32": _dist_witnesses(rec, "witness_d_f32_", f32_setup, f32_mods, inputs,
+                                        first["f32"], lr)}
+    del f32_mods
+
+    # 2 ranks on cuda:0 over gloo with CUDA tensors, beside the --tiny T
+    # step's one-process reference; their results (hundreds of MB) go to a
+    # temporary directory
+    port = _free_port()
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen([sys.executable, __file__, "--dist-rank", str(r),
+                                   str(port), tmp], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        try:
+            t_setup, t_mods, t_inputs = _tiny_t_setup()
+            t_one = _tiny_t_step(t_setup, t_mods, t_inputs)
+            del t_mods
+            for p in procs:
+                out, _ = p.communicate(
+                    timeout=max(1, DIST_DEADLINE_S - (time.perf_counter() - t1)))
+                check(p.returncode == 0,
+                      f"2-rank worker failed (rc {p.returncode}):\n{out[-4000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt") for r in range(2)]
+    rec["two_ranks_seconds"] = time.perf_counter() - t1
+    rec["two_ranks_gather_grad_ms"] = ranks[0]["d_gather_grad_ms"]
+    rec["two_ranks_max_memory_allocated_gib"] = [r["d_max_memory_allocated_gib"]
+                                                 for r in ranks]
+    for which, ref in (("d", first["no_group"]), ("d_f32", first["f32"]), ("t", t_one)):
+        got = ranks[0][which]
+        for k in ("trainable", "d"):
+            check(torch.equal(got["new"][k], ranks[1][which]["new"][k]),
+                  f"2-rank {which} step: the ranks hold different {k} parameters")
+            check(bool(torch.isfinite(got["new"][k]).all()),
+                  f"2-rank {which} step: non-finite {k} parameters")
+        _dist_compare(rec, f"two_ranks_{which}_", got, ref, lr)
+        if which in witness:
+            _dist_compare(rec, f"two_ranks_{which}_vs_synthesis_per_row_", got,
+                          witness[which]["synthesis_per_row"], lr)
+    rec["seconds"] = time.perf_counter() - t0
+    (OUT_DIR / "distributed_training.json").write_text(json.dumps(rec, indent=1))
+    bad = _dist_gate_failures(rec)
+    bad.update({k: v for k, v in rec.items()
+                if k.startswith("nccl_world_1_bit_equal") and v is not True})
+    return rec, launches["nccl_world_1"], bad
+
+
+def distributed_phase(smi):
+    """Frame-parallel serving and data-parallel training (dist_serving,
+    dist_training). Returns the launches of B1-B5 in the phase's main path:
+    one frame-parallel serving call and one D step under the process
+    group."""
+    t0 = time.perf_counter()
+    serve, serve_launches = dist_serving(smi)
+    train, train_launches, bad = dist_training(smi)
+    launches = collections.Counter(serve_launches)
+    launches.update(train_launches)
+    emit({"phase": "distributed", "serve": serve, "train": train,
+          "launches": dict(launches), "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi})
+    check(not bad, f"data-parallel steps differ from one process: {bad}")
+    return dict(launches)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs an NVIDIA GPU")
     from vtoonify_tpu_torch.ops import kernels as K
 
+    if len(sys.argv) == 5 and sys.argv[1] == "--dist-rank":
+        # one rank of distributed_phase's 2-rank job, started by it
+        dist_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -3196,8 +3789,15 @@ def main():
         # result line
         regularise_phase(smi)
         return
-    check(len(sys.argv) == 1,
-          "usage: chip_smoke.py [--kernels NAME[,NAME...] | --paths | --apps | --raft | --reg]")
+    if sys.argv[1:] == ["--dist"]:
+        # frame-parallel serving and data-parallel training alone, with
+        # B5's second order in coef; no result line
+        emit({"phase": "affine_warp_coef_second_order",
+              **affine_warp_coef_second_order(dev, np.random.RandomState(SEED + 30))})
+        distributed_phase(smi)
+        return
+    check(len(sys.argv) == 1, "usage: chip_smoke.py [--kernels NAME[,NAME...] | --paths "
+          "| --apps | --raft | --reg | --dist]")
     summary = kernel_phase(dev)
     launches_serve = serve_phases(smi)
     launches_style_engine = style_engine_phase(smi)
@@ -3218,13 +3818,15 @@ def main():
     launches_cli = train_cli_phase()
     launches_raft = raft_train_phase(smi)
     launches_reg = regularise_phase(smi)
+    launches_dist = distributed_phase(smi)
     paths = {"serve": launches_serve, "style_engine": launches_style_engine,
              "pipeline_options": launches_options, "serve_http": launches_http,
              "smooth_parsing": launches_smooth, "release_gate": launches_gate,
              "train_step": launches_train, "pretrain_d_step": launches_pretrain_d,
              "pretrain_t_step": launches_t["pretrain_t"],
              "train_t_step": launches_t["train_t"], "train_cli": launches_cli,
-             "raft_train_step": launches_raft, "regularise": launches_reg}
+             "raft_train_step": launches_raft, "regularise": launches_reg,
+             "distributed": launches_dist}
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_train_stage1 import lean_worker  # noqa: F401  (one torch thread)
 from vtoonify_tpu.convert import torch_export as JE
 from vtoonify_tpu.models import vtoonify as JV
 from vtoonify_tpu.pipeline import toonify as JT

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from tests.test_torch_checkpoint import N_LATENT, _pipelines, zoo  # noqa: F401
+from tests.test_torch_train_stage1 import lean_worker  # noqa: F401  (one torch thread)
 from vtoonify_tpu_torch.cli import style_transfer as cli
 from vtoonify_tpu_torch.pipeline import crop as C
 from vtoonify_tpu_torch.pipeline import model_api as M
@@ -84,8 +85,10 @@ def test_cli_image_end_to_end(zoo, tmp_path):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--sp", "2"], "not ported yet"),
+    # (the id kept from when --sp and --dp were both refused as not ported)
+    pytest.param(["--sp", "2"], "north star", id="extra0-not ported yet"),
     (["--style_id", "5"], r"--style_id 5 out of range.*styles 0\.\.2"),
+    (["--dp", "2"], "--dp 2 but only 0 devices are visible"),
 ])
 def test_cli_refusals(zoo, tmp_path, extra, message):
     content = tmp_path / "face.png"

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_train_stage1 import lean_worker  # noqa: F401  (one torch thread)
 from vtoonify_tpu.nn import layers as JL
 from vtoonify_tpu_torch.convert.from_jax import load_jax_params
 from vtoonify_tpu_torch.nn import layers as L

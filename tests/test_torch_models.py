@@ -18,12 +18,14 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_train_stage1 import lean_worker  # noqa: F401  (one torch thread)
 from vtoonify_tpu.models import bisenet as JB
 from vtoonify_tpu.models import vtoonify as JV
 from vtoonify_tpu.pipeline import toonify as JT
 from vtoonify_tpu_torch.convert.from_jax import jax_state_dict, load_jax_params
 from vtoonify_tpu_torch.models import bisenet as B
 from vtoonify_tpu_torch.models import vtoonify as V
+from vtoonify_tpu_torch.parallel.mesh import make_mesh
 from vtoonify_tpu_torch.pipeline import toonify as T
 
 TINY = dict(in_size=32, out_size=128, channel_multiplier=1, channel_max=256,
@@ -176,9 +178,14 @@ def test_pipeline_surface(bisenet_pair):
     # style preparation is ported: tests/test_torch_checkpoint.py holds
     # compute_style and the exemplar style to JAX
     # the pipeline options are ported (tests/test_torch_options.py holds
-    # them to JAX); only a device mesh is not
-    with pytest.raises(NotImplementedError):
-        T.ToonifyPipeline(p, cfg, bp, device="cpu", mesh=object())
+    # them to JAX), and so is the device mesh (tests/test_torch_parallel.py):
+    # a mesh of one device is the pipeline on that device, and a mesh that
+    # does not start at the pipeline's device is refused
+    mesh = make_mesh(devices=["cpu"])
+    one = T.ToonifyPipeline(p, cfg, bp, dtype=torch.float32, mesh=mesh)
+    np.testing.assert_array_equal(one.process_image(frame, s_w, 0.5), out)
+    with pytest.raises(ValueError, match="first device"):
+        T.ToonifyPipeline(p, cfg, bp, device="cuda", mesh=mesh)
     for option in ({"size_bucket": 32}, {"packed_output": True},
                    {"size_bucket": 32, "bucket_margin": 8}):
         opt = T.ToonifyPipeline(p, cfg, bp, dtype=torch.float32, device="cpu",

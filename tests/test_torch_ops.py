@@ -18,6 +18,7 @@ import torch
 
 import jax.numpy as jnp
 
+from tests.test_torch_train_stage1 import lean_worker  # noqa: F401  (one torch thread)
 from vtoonify_tpu.nn import layers as JL
 from vtoonify_tpu.ops import fused_act as jfa
 from vtoonify_tpu.ops import interp as jinterp
@@ -511,6 +512,9 @@ def test_port_imports_no_jax():
         "import vtoonify_tpu_torch.cli.serve\n"
         "import vtoonify_tpu_torch.cli.inference_playground\n"
         "import vtoonify_tpu_torch.cli.validate_release\n"
+        "import vtoonify_tpu_torch.parallel.mesh\n"
+        "import vtoonify_tpu_torch.parallel.collectives\n"
+        "import vtoonify_tpu_torch.parallel.multihost\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'vtoonify_tpu.')))\n"
         "assert not bad, bad\n"

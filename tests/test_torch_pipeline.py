@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_train_stage1 import lean_worker  # noqa: F401  (one torch thread)
 from vtoonify_tpu.models import generator as JG
 from vtoonify_tpu.models import vtoonify as JV
 from vtoonify_tpu.pipeline import crop as JC

@@ -109,18 +109,64 @@ def test_functions_pass_gradgradcheck(name):
 
 
 def test_affine_warp_coef_has_no_second_derivative():
-    """B5's coef gradient is right to first order; a second derivative that
-    needs coef raises, never a silent zero."""
+    """B5's coef gradient is right to first order, and its second
+    derivative in coef (through the coef gradient and through the image
+    gradient's dependence on coef) passes gradgradcheck in float64; the test
+    keeps the name it had while that second derivative raised."""
     rng = np.random.RandomState(2)
     img = _t(rng, 2, 3, 7, 8, dtype=F64).requires_grad_()
     coef = torch.tensor(_COEF, dtype=F64, requires_grad=True)
-    assert torch.autograd.gradcheck(lambda i, c: K._AffineWarp.apply(i, c, (6, 9)),
-                                    (img, coef))
-    y = K._AffineWarp.apply(img, coef, (6, 9))
-    gi, gc = torch.autograd.grad(y.square().sum(), (img, coef), create_graph=True)
-    for g in (gi, gc):
-        with pytest.raises(NotImplementedError, match="coef"):
-            torch.autograd.grad(g.square().sum(), coef, retain_graph=True)
+    warp = lambda i, c: K._AffineWarp.apply(i, c, (6, 9))  # noqa: E731
+    assert torch.autograd.gradcheck(warp, (img, coef))
+    assert torch.autograd.gradgradcheck(warp, (img, coef))
+    assert torch.autograd.gradgradcheck(lambda c: warp(img.detach(), c), (coef,))
+
+
+_THETA = ((( 0.93, -0.21, 0.137), (0.19, 1.08, -0.113)),
+          ((1.12, 0.31, -0.261), (-0.27, 0.87, 0.171)))
+
+
+def test_affine_warp_second_derivative_in_theta_matches_jax(monkeypatch):
+    """The second derivative of the augment's warp (train/augment.py::
+    _affine_warp) in its affine theta and in the image, through the
+    gradient of <warp, v1>, against jax.grad of jax.vjp of the JAX
+    package's `_affine_warp` on the same inputs (its Pallas path forced in
+    interpret mode, so the custom_vjp's backward is what JAX differentiates
+    again). float32 on both sides; within 1e-4 of the largest value. The
+    theta keep every sample off the bilinear kinks."""
+    import vtoonify_tpu.train.augment as JA
+    from vtoonify_tpu_torch.train import augment as A
+
+    rng = np.random.RandomState(5)
+    out_hw = (6, 9)
+    img = rng.randn(2, 7, 8, 3).astype(np.float32)
+    theta = np.asarray(_THETA, np.float32)
+    v1 = rng.randn(2, *out_hw, 3).astype(np.float32)
+    v2_img = rng.randn(*img.shape).astype(np.float32)
+    v2_theta = rng.randn(*theta.shape).astype(np.float32)
+
+    monkeypatch.setattr(JA, "_FORCE_KERNEL", True)
+    monkeypatch.setattr(JA, "_INTERPRET", True)
+
+    def inner(a, t):
+        _, vjp = jax.vjp(lambda a_, t_: JA._affine_warp(a_, t_, out_hw), a, t)
+        ga, gt = vjp(jnp.asarray(v1))
+        return (ga * v2_img).sum() + (gt * v2_theta).sum(), (ga, gt)
+
+    (want_img, want_theta), (g1_img, g1_theta) = jax.grad(
+        inner, argnums=(0, 1), has_aux=True)(jnp.asarray(img), jnp.asarray(theta))
+
+    leaves = [torch.from_numpy(_nchw(img).numpy()).requires_grad_(),
+              torch.from_numpy(theta).requires_grad_()]
+    y = A._affine_warp(leaves[0], leaves[1], out_hw)
+    gi, gt = torch.autograd.grad((y * _nchw(v1)).sum(), leaves, create_graph=True)
+    got_img, got_theta = torch.autograd.grad(
+        (gi * _nchw(v2_img)).sum() + (gt * torch.from_numpy(v2_theta)).sum(), leaves)
+
+    assert _rel(gi.detach(), _nchw(g1_img)) <= 1e-4
+    assert _rel(gt.detach(), g1_theta) <= 1e-4
+    assert _rel(got_img, _nchw(want_img)) <= 1e-4
+    assert _rel(got_theta, want_theta) <= 1e-4
 
 
 def test_affine_warp_gather_plain_matches_grid_sample():

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_train_stage1 import lean_worker  # noqa: F401  (one torch thread)
 from vtoonify_tpu.models import dualstylegan as JD
 from vtoonify_tpu.models import generator as JG
 from vtoonify_tpu.models import lpips as JLP

@@ -138,13 +138,20 @@ def test_train_t_cli_both_stages(files, tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("cli", ["train_d", "train_t"])
 @pytest.mark.parametrize("argv,raises,match", [
-    (["--tp", "2", "--cpu"], SystemExit, "queue A item 10"),
-    (["--multihost", "--cpu"], SystemExit, "not ported yet"),
+    # (the first two ids kept from when both were refused as not ported)
+    pytest.param(["--tp", "2", "--cpu"], SystemExit, "north star",
+                 id="argv0-SystemExit-queue A item 10"),
+    pytest.param(["--multihost", "--cpu"], ValueError, "coordinator",
+                 id="argv1-SystemExit-not ported yet"),
     ([], RuntimeError, "no CUDA device"),
 ])
 def test_trainer_refusals(cli, argv, raises, match, monkeypatch, tmp_path):
-    """Multi-device options are refused; without --cpu and without a card
-    the trainers raise instead of running on the CPU."""
+    """Tensor parallelism is refused; --multihost with no coordinator and no
+    launcher raises before any process group starts; without --cpu and
+    without a card the trainers raise instead of running on the CPU."""
+    for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK",
+              "VTOONIFY_COORDINATOR", "VTOONIFY_NUM_PROCESSES", "VTOONIFY_PROCESS_ID"):
+        monkeypatch.delenv(k, raising=False)
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     main = {"train_d": train_d.main, "train_t": train_t.main}[cli]

@@ -93,6 +93,19 @@ def _jax_tree(module, like):
     return fill(like, "")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def lean_worker():
+    """tests/test_torch_train_stage1.py's lean_worker (one torch thread, the
+    memory released at the end), restated: that module imports this one."""
+    from tests.test_torch_train_stage1 import release_memory
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+    release_memory()
+
+
 @pytest.fixture(scope="module")
 def bundle():
     g = torch.Generator().manual_seed(60)

@@ -1,7 +1,14 @@
 """What the two trainer CLIs (cli/train_d.py, cli/train_t.py) share: the
-options both take, the start-up (device, precision, the options of the JAX
-trainers that are not ported), the iteration loop with its logging,
-preemption guard and profiling window, and the checkpoint names."""
+options both take, the start-up (device, process group, precision, the
+options of the JAX trainers that are not ported), the iteration loop with
+its logging, preemption guard and profiling window, and the checkpoint
+names.
+
+Data parallelism: one process per card, started by `torchrun
+--nproc_per_node=N` (detected from its environment) or by hand with
+`--multihost --coordinator HOST:PORT --num_processes N --process_id R`
+(`parallel/multihost.py`). `--batch` is the global batch; each rank trains
+on its share and only rank 0 writes checkpoints, logs and sample grids."""
 
 from __future__ import annotations
 
@@ -11,6 +18,9 @@ import time
 import torch
 
 from vtoonify_tpu_torch import resolve_device
+from vtoonify_tpu_torch.parallel import collectives as C
+from vtoonify_tpu_torch.parallel import multihost
+from vtoonify_tpu_torch.parallel.mesh import batch_not_divisible
 from vtoonify_tpu_torch.train.guards import (
     PreemptionGuard,
     check_finite_metrics,
@@ -29,7 +39,8 @@ def add_common_args(p, ref: str):
     """The options both trainers take (`ref` names the reference script
     for the help texts)."""
     p.add_argument("--iter", type=int, default=2000)
-    p.add_argument("--batch", type=int, default=8, help="batch size")
+    p.add_argument("--batch", type=int, default=8,
+                   help="global batch size (split over the ranks)")
     p.add_argument("--lr", type=float, default=1e-4)
     p.add_argument("--start_iter", type=int, default=0)
     p.add_argument("--save_every", type=int, default=30000)
@@ -59,15 +70,22 @@ def add_common_args(p, ref: str):
                    help="exact resume from the last full train state "
                         "(params+EMA+optimizers+step)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel width (not ported: 1 only)")
-    p.add_argument("--multihost", action="store_true", help="not ported")
-    p.add_argument("--coordinator", type=str, default=None, help="not ported")
-    p.add_argument("--num_processes", type=int, default=None, help="not ported")
-    p.add_argument("--process_id", type=int, default=None, help="not ported")
+                   help="tensor-parallel width (1 only: GSPMD tensor "
+                        "parallelism is not part of the port)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a job of one process per card "
+                        "(parallel/multihost.py; torchrun's environment is "
+                        "detected without it)")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="host:port of rank 0's rendezvous (with --multihost)")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="the job's number of processes (with --multihost)")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="this process's rank (with --multihost)")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--local_rank", type=int, default=0,
-                   help=f"accepted for reference launch-script compatibility "
-                        f"({ref}); ignored")
+    p.add_argument("--local_rank", type=int, default=None,
+                   help=f"the card this process takes, as the reference's "
+                        f"launcher passes it ({ref}); default LOCAL_RANK")
     p.add_argument("--debug_nans", action="store_true",
                    help="autograd anomaly detection: fail at the first "
                         "backward op that makes a NaN (slow, debug only)")
@@ -97,29 +115,52 @@ def add_common_args(p, ref: str):
 
 
 def start(args) -> torch.device:
-    """Print the options, refuse what is not ported, set the float32
-    precision and NaN debugging; returns the run's device."""
+    """Print the options, refuse what is not ported, join the job's process
+    group (--multihost, or a launcher's environment), check that the ranks
+    split --batch evenly, set the float32 precision and NaN debugging;
+    returns the run's device."""
     if args.encoder_path is None:
         args.encoder_path = os.path.join("./checkpoint/", args.name,
                                          "pretrain.ckpt")
-    print("Load options")
-    for k, v in sorted(vars(args).items()):
-        print(f"{k}: {v}")
-    if (args.tp > 1 or args.multihost or args.coordinator is not None
-            or args.num_processes is not None or args.process_id is not None):
-        raise SystemExit("error: --tp > 1, --multihost, --coordinator, "
-                         "--num_processes and --process_id (multi-device "
-                         "training) are not ported yet to vtoonify_tpu_torch "
-                         "(ROADMAP.md queue A item 10); train on one device")
-    device = resolve_device("cpu" if args.cpu else None)
+    if args.tp > 1:
+        raise SystemExit("error: --tp > 1 (GSPMD tensor parallelism) is a TPU "
+                         "layout the north star leaves out of vtoonify_tpu_torch "
+                         "(ROADMAP.md); the trainers are data-parallel: start "
+                         "one process per card")
+    want = "cpu" if args.cpu else None
+    if args.multihost or multihost.launched():
+        device = multihost.initialize(args.coordinator, args.num_processes,
+                                      args.process_id, args.local_rank, want)
+    else:
+        device = resolve_device(want)
+        if device.type == "cuda" and args.local_rank is not None:
+            device = torch.device("cuda", args.local_rank)
+    if is_main():
+        print("Load options")
+        for k, v in sorted(vars(args).items()):
+            print(f"{k}: {v}")
+    if args.batch % C.get_world_size():
+        raise SystemExit("error: --" + batch_not_divisible(
+            args.batch, C.get_world_size(), "world size"))
     if args.matmul_precision is not None:
         from vtoonify_tpu_torch.cli.style_transfer import set_float32_precision
 
         set_float32_precision(args.matmul_precision)
     if args.debug_nans:
         enable_nan_debugging()
-    os.makedirs(f"checkpoint/{args.name}", exist_ok=True)
+    if is_main():
+        os.makedirs(f"checkpoint/{args.name}", exist_ok=True)
     return device
+
+
+def is_main() -> bool:
+    """Whether this process writes the run's files (rank 0)."""
+    return C.get_rank() == 0
+
+
+def local_batch(args) -> int:
+    """This rank's share of --batch."""
+    return args.batch // C.get_world_size()
 
 
 def precision(args) -> dict:
@@ -145,32 +186,39 @@ def train_loop(args, state, state_path: str, step, save, log_grid=None):
     (metrics, extra log fields), then a metrics line every log_every // 10
     iterations (non-finite metrics raise), `log_grid(idx)`, on SIGTERM the
     full state saved to `state_path` and a clean return, else `save(idx)`;
-    and the --profile window."""
+    and the --profile window. Under a process group every rank steps and
+    checks its metrics; rank 0 alone logs, traces and saves; the group is
+    left at the end."""
+    main = is_main()
     log_dir = f"log/{args.name}"
-    mlog = MetricsLogger(log_dir)
-    tracer = StepTrace(os.path.join(log_dir, "trace"), args.start_iter + 1,
-                       args.profile)
+    mlog = MetricsLogger(log_dir) if main else None
+    profile = args.profile if main else 0
+    tracer = StepTrace(os.path.join(log_dir, "trace"), args.start_iter + 1, profile)
     guard = PreemptionGuard()
+    save_state = ((lambda: save_train_state(state_path, state)) if main
+                  else (lambda: None))
     t0 = time.time()
     try:
         for idx in range(args.start_iter, args.iter):
-            if args.profile:
+            if profile:
                 tracer.before(idx)
             metrics, extra = step(idx)
-            if args.profile:
+            if profile:
                 tracer.after(idx)
             if (idx + 1) % max(args.log_every // 10, 1) == 0:
                 check_finite_metrics(metrics, idx)
-                mlog.log(idx, metrics, **extra)
-                m = {k: f"{float(v):.4f}" for k, v in metrics.items()}
-                print(f"iter {idx}: {m} ({(time.time() - t0) / (idx - args.start_iter + 1):.2f}"
-                      " s/it)", flush=True)
-            if log_grid is not None:
+                if main:
+                    mlog.log(idx, metrics, **extra)
+                    m = {k: f"{float(v):.4f}" for k, v in metrics.items()}
+                    print(f"iter {idx}: {m} ({(time.time() - t0) / (idx - args.start_iter + 1):.2f}"
+                          " s/it)", flush=True)
+            if main and log_grid is not None:
                 log_grid(idx)
-            if handle_preemption(guard, lambda: save_train_state(state_path, state),
-                                 idx + 1):
+            if handle_preemption(guard, save_state, idx + 1):
                 return
-            save(idx)
+            if main:
+                save(idx)
     finally:
         tracer.close()
         guard.uninstall()
+        multihost.shutdown()

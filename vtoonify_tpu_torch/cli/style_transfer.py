@@ -77,9 +77,12 @@ def build_parser():
                         "'high' TF32 for convs and matmuls, 'default' "
                         "torch's own (TF32 for cuDNN convs only)")
     p.add_argument("--sp", type=int, default=None,
-                   help="spatial partitioning over N devices (not ported)")
+                   help="spatial partitioning over N devices (not ported: "
+                        "a TPU layout the north star leaves out)")
     p.add_argument("--dp", type=int, default=None,
-                   help="data parallelism over N devices (not ported)")
+                   help="frame parallelism: a replica of the model on each "
+                        "of the first N cards, the frames of a batch split "
+                        "over them")
     p.add_argument("--profile", action="store_true",
                    help="print a decode/preprocess/dispatch/fetch/encode "
                         "stage breakdown after video processing")
@@ -108,9 +111,19 @@ def set_float32_precision(prec):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.sp or args.dp:
-        raise SystemExit("error: --sp and --dp (multi-device) are not ported "
-                         "yet to vtoonify_tpu_torch; run on one device")
+    if args.sp:
+        raise SystemExit("error: --sp (GSPMD spatial partitioning) is a TPU "
+                         "layout the north star leaves out of "
+                         "vtoonify_tpu_torch (ROADMAP.md); use --dp")
+    mesh = None
+    if args.dp:
+        from vtoonify_tpu_torch.parallel.mesh import make_mesh
+
+        visible = 0 if args.cpu else torch.cuda.device_count()
+        if visible < args.dp:
+            raise SystemExit(f"error: --dp {args.dp} but only {visible} "
+                             "devices are visible")
+        mesh = make_mesh(args.dp)
 
     prec = args.matmul_precision or ("highest" if args.fp32 else None)
     if prec is not None:
@@ -140,7 +153,7 @@ def main(argv=None):
     pipe = ToonifyPipeline(
         vt, cfg, parsing, psp_params=psp, psp_cfg=psp_cfg, latent_avg=latent_avg,
         exstyle=exstyle, dtype=torch.float32 if args.fp32 else torch.bfloat16,
-        device="cpu" if args.cpu else None)
+        mesh=mesh, device="cpu" if args.cpu else None)
 
     # like the reference (style_transfer.py:70-77), a missing dlib model is
     # fetched on first use (pipeline/landmarks.py::ensure_predictor); with

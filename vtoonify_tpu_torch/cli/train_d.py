@@ -12,8 +12,10 @@ faceparsing.pth, pSp encoder.pt, exstyle_code.npy, directions.npy) and
 writes checkpoint/NAME/{pretrain.ckpt, pretrain_state.ckpt,
 vtoonify_s*_d*.ckpt, train_state.ckpt} (torch.save files; `--resume`
 reads the *_state.ckpt) and, with --export_pt, reference-format .pt files;
-logs go to log/NAME/. One device: --tp > 1 and the multi-host options are
-refused.
+logs go to log/NAME/. Several cards: one process each, under `torchrun
+--nproc_per_node=N -m vtoonify_tpu_torch.cli.train_d ...` or with
+--multihost --coordinator HOST:PORT --num_processes N --process_id R;
+--batch is the global batch and rank 0 alone writes. --tp > 1 is refused.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from vtoonify_tpu_torch.cli import _train_loop as TL
+from vtoonify_tpu_torch.parallel.mesh import shard_process_local_batch
 
 
 def build_parser():
@@ -117,6 +120,7 @@ def main(argv=None):
                 sel = np.full((args.batch,), args.style_id)
             else:
                 sel = rng.randint(0, styles.shape[0], (args.batch,))
+            sel = shard_process_local_batch(sel)  # this rank's rows
             metrics = S.pretrain_step(state, frozen, parsing, cfg, directions,
                                       styles[torch.from_numpy(sel).to(device)],
                                       d_s, generator=gen, **prec)
@@ -158,14 +162,15 @@ def main(argv=None):
         **(TL.TINY_TCFG if args.tiny else {}))
 
     _, frozen = S.split_trainable(vt)
-    state = S.init_train_d_state(vt, d, args.batch, cfg, tcfg, device=device)
+    state = S.init_train_d_state(vt, d, TL.local_batch(args), cfg, tcfg,
+                                 device=device)
     state_path = f"{ckdir}/train_state.ckpt"
     if args.resume and os.path.exists(state_path):
         ckpt_util.load_train_state(state_path, state)
         args.start_iter = state.step
         print(f"resumed full train state at step {args.start_iter}")
     latent_avg = latent_avg.to(device)
-    glog = SampleGridLogger(f"log/{args.name}", cfg, args.fix_degree)
+    glog = SampleGridLogger(f"log/{args.name}", cfg, args.fix_degree) if TL.is_main() else None
     suffix = capability_suffix(args)
     current = {}
 
@@ -180,7 +185,7 @@ def main(argv=None):
             sel = np.full((args.batch,), args.style_id)
         else:
             sel = rng.randint(0, styles.shape[0], (args.batch,))
-        sel = torch.from_numpy(sel).to(device)
+        sel = torch.from_numpy(shard_process_local_batch(sel)).to(device)
         style = styles[sel]
         xl_override = style if (not args.fix_color and args.fix_style) else None
         use_jitter = (idx > 0 and idx >= args.iter / 2.0
@@ -188,7 +193,7 @@ def main(argv=None):
         cft = idx / (args.iter / 2.0)
         draws = S.sample_train_d_draws(gen, args.batch, cfg, tcfg,
                                        directions.shape[0], device=device)
-        if idx == args.start_iter:  # the fixed sample is this step's data
+        if glog is not None and idx == args.start_iter:  # the fixed sample: this step's data
             with torch.no_grad():
                 glog.seed(synth.synth_train_batch(
                     draws, vt, cfg, parsing, psp, psp_cfg, latent_avg,

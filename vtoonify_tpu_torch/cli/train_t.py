@@ -10,7 +10,7 @@ Usage (the card; add --cpu for the CPU):
 
 Writes checkpoint/NAME/{pretrain.ckpt, pretrain_state.ckpt, vtoonify.ckpt,
 train_state.ckpt} and, with --export_pt, reference-format .pt files; logs
-go to log/NAME/.
+go to log/NAME/. Several cards: one process each, as cli/train_d.py says.
 """
 
 from __future__ import annotations
@@ -147,13 +147,13 @@ def main(argv=None):
         args.start_iter = state.step
         print(f"resumed full train state at step {args.start_iter}")
     latent_avg = latent_avg.to(device)
-    glog = SampleGridLogger(f"log/{args.name}", cfg, fix_degree=True,
-                            use_degree=False)
+    glog = (SampleGridLogger(f"log/{args.name}", cfg, fix_degree=True,
+                             use_degree=False) if TL.is_main() else None)
 
     def step(idx):
         draws = S.sample_train_t_draws(gen, args.batch, cfg, tcfg,
                                        directions.shape[0], device=device)
-        if idx == args.start_iter:  # the fixed sample is this step's data
+        if glog is not None and idx == args.start_iter:  # the fixed sample: this step's data
             with torch.no_grad():
                 glog.seed(synth.synth_train_t_batch(
                     draws, base, cfg.generator, vt, cfg, parsing, psp, psp_cfg,

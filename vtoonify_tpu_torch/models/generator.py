@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from vtoonify_tpu_torch.nn import layers as L
+from vtoonify_tpu_torch.parallel import collectives as C
 
 
 def channel_table(channel_multiplier: int = 2, channel_max: int = 512) -> dict:
@@ -214,6 +215,12 @@ class DiscriminatorConfig:
 
 
 class Discriminator(nn.Module):
+    """The StyleGAN2 discriminator. Under a process group of more than one
+    rank its minibatch-stddev layer is a collective (`minibatch_stddev`):
+    every rank must run each discriminator call together, with the same
+    shapes. A call made on one rank alone (an evaluation or a sample grid on
+    rank 0) blocks in that collective; make such calls outside the group."""
+
     def __init__(self, cfg: DiscriminatorConfig, generator=None):
         super().__init__()
         g = generator
@@ -238,7 +245,20 @@ def init_discriminator(cfg: DiscriminatorConfig, generator=None) -> Discriminato
 
 def minibatch_stddev(x, stddev_group: int = 4, stddev_feat: int = 1):
     """reference model.py:704-712 WITHOUT the final concat: the per-group
-    stddev map (B, stddev_feat, H, W) in x's dtype."""
+    stddev map (B, stddev_feat, H, W) in x's dtype.
+
+    When the batch is split over the ranks of a process group, the groups
+    are formed over the global batch, as the JAX package's data parallelism
+    forms them over its one logical array: each rank gathers every rank's
+    rows (differentiably) and keeps the map of its own. That gather is a
+    collective, so every rank must make the call together."""
+    if C.spans_ranks():
+        return C.local_rows(_minibatch_stddev(C.gather_batch(x), stddev_group,
+                                              stddev_feat))
+    return _minibatch_stddev(x, stddev_group, stddev_feat)
+
+
+def _minibatch_stddev(x, stddev_group, stddev_feat):
     b, c, h, w = x.shape
     group = min(b, stddev_group)
     y = x.reshape(group, b // group, stddev_feat, c // stddev_feat, h, w)

@@ -84,19 +84,22 @@ class Fusion(nn.Module):
 
 
 def fusion_apply(p: Fusion, f_G, f_E, d_s):
-    b, c = f_G.shape[:2]
+    c = f_G.shape[1]
     # the (f32) degree scalar is cast to the activation dtype first, so a
     # bf16 graph stays bf16 (JAX models/vtoonify.py:97-100); a Python degree
     # is filled on the device, since copying a host scalar there would wait
     # on it
     deg = (torch.as_tensor(d_s, device=f_G.device) if torch.is_tensor(d_s)
            else torch.full((), d_s, dtype=torch.float32, device=f_G.device))
-    label = torch.zeros((b, 1), dtype=f_G.dtype, device=f_G.device) + deg.to(f_G.dtype)
+    # one degree for the whole batch: its label MLP runs on one row, which
+    # the AdaIN below broadcasts over the batch (every frame's numbers then
+    # do not depend on how many frames share the call)
+    label = torch.zeros((1, 1), dtype=f_G.dtype, device=f_G.device) + deg.to(f_G.dtype)
     label = F.leaky_relu(L.linear_torch(p.linear[0], label), 0.2)
     label = F.leaky_relu(L.linear_torch(p.linear[1], label), 0.2)
     # cat[f_G, |f_G - f_E|] -> AdaIN -> conv, with the per-channel instance
     # norm applied to each half (the same values as the reference's concat)
-    st = L.linear_torch(p.norm.style, label)  # (B, 4c): gamma | beta over cat
+    st = L.linear_torch(p.norm.style, label)  # (1, 4c): gamma | beta over cat
     diff = torch.abs(f_G - f_E)
     na = (st[:, 0:c, None, None] * L.instance_norm_2d(f_G)
           + st[:, 2 * c:3 * c, None, None])

@@ -40,9 +40,11 @@ Function is differentiable twice, as JAX differentiates these functions
     the same kernel on the card;
   * B5's image gradient W(coef)^T g is linear in g: `_AffineWarpAdjoint`
     computes it (the F.grid_sample VJP) and its backward is the B5 forward
-    again. torch 2.11 has no derivative of grid_sampler_2d_backward, so a
-    second derivative that needs coef (through the coef gradient, or the
-    image gradient's dependence on coef) raises NotImplementedError.
+    again (in g) and the coef gradient of the warp of the incoming gradient
+    (in coef). The coef gradient `_AffineWarpCoefGrad` is differentiated by
+    recomputing it through `affine_warp_gather_plain` (torch 2.11 has no
+    derivative of grid_sampler_2d_backward), with `create_graph` exactly
+    when the caller asked, as B1's backward is.
 The forward stays the kernel whether or not a graph is recorded.
 
 Layouts and arithmetic: activations are NCHW and contiguous, in float32 or
@@ -668,9 +670,10 @@ def affine_warp_plain(img, coef, out_hw):
 def affine_warp_gather_plain(img, coef, out_hw):
     """The warp of `affine_warp_plain` by explicit gathers of the four
     neighbours on the pixel coordinates (the kernel's own arithmetic),
-    differentiable twice in img and coef on every torch version: the
-    second-order oracle of B5 (torch 2.11 has no derivative of
-    grid_sampler_2d_backward). Not on any path."""
+    differentiable twice in img and coef on every torch version (torch 2.11
+    has no derivative of grid_sampler_2d_backward): `_AffineWarpCoefGrad`'s
+    backward recomputes the coef gradient through it, and it is the card's
+    second-order oracle of B5."""
     n, c, h, w = img.shape
     ho, wo = out_hw
     dt = torch.promote_types(img.dtype, torch.float32)
@@ -730,9 +733,9 @@ def _affine_warp_forward(img, coef, out_hw):
 
 class _AffineWarp(torch.autograd.Function):
     """Backward: the F.grid_sample VJP, as the JAX package's custom_vjp
-    takes it. The image gradient goes through `_AffineWarpAdjoint` (twice
-    differentiable in the incoming gradient), the coef gradient through
-    `_AffineWarpCoefGrad` (once only)."""
+    takes it. The image gradient goes through `_AffineWarpAdjoint`, the
+    coef gradient through `_AffineWarpCoefGrad`; both are differentiable
+    again, in every input."""
 
     @staticmethod
     def forward(ctx, img, coef, out_hw):
@@ -751,22 +754,17 @@ class _AffineWarp(torch.autograd.Function):
         return gimg, gcoef, None
 
 
-_COEF_SECOND_ORDER = (
-    "affine_warp: a second derivative that involves coef is not implemented "
-    "(torch 2.11 has no derivative of grid_sampler_2d_backward); differentiate "
-    "twice with coef as a constant (requires_grad=False)")
-
-
 class _AffineWarpAdjoint(torch.autograd.Function):
     """W(coef)^T g, the image gradient of B5 (the F.grid_sample VJP, plain
     PyTorch on every device). It is linear in g and does not depend on the
-    image's values (`img` gives its shape and dtype), so its backward is the
-    B5 forward again: the kernel on the card. Its dependence on coef has no
-    derivative in torch 2.11, so that one raises."""
+    image's values (`img` gives its shape and dtype). Its backward in g is
+    the B5 forward again (the kernel on the card); in coef it is
+    d<gg, W(coef)^T g>/dcoef = d<W(coef) gg, g>/dcoef, the coef gradient of
+    the warp of gg."""
 
     @staticmethod
     def forward(ctx, g, coef, img, out_hw):
-        ctx.save_for_backward(coef)
+        ctx.save_for_backward(g, coef)
         ctx.out_hw = out_hw
         with torch.enable_grad():
             leaf = img.detach().requires_grad_()
@@ -775,18 +773,34 @@ class _AffineWarpAdjoint(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gg):
+        g, coef = ctx.saved_tensors
+        gg = gg.contiguous()
+        dg = dcoef = None
+        if ctx.needs_input_grad[0]:
+            dg = _affine_warp_call(gg, coef, ctx.out_hw)
         if ctx.needs_input_grad[1]:
-            raise NotImplementedError(_COEF_SECOND_ORDER)
-        (coef,) = ctx.saved_tensors
-        return _affine_warp_call(gg.contiguous(), coef, ctx.out_hw), None, None, None
+            dcoef = _AffineWarpCoefGrad.apply(g, gg, coef, ctx.out_hw)
+        return dg, dcoef, None, None
+
+
+def _coef_grad_gather(g, img, coef, out_hw):
+    """d<g, W(coef) img>/dcoef through `affine_warp_gather_plain`, with its
+    graph back to g, img and coef."""
+    if not coef.requires_grad:  # a constant: differentiated only through g, img
+        coef = coef.detach().requires_grad_()
+    y = affine_warp_gather_plain(img, coef, out_hw)
+    return torch.autograd.grad((y * g).sum(), coef, create_graph=True)[0]
 
 
 class _AffineWarpCoefGrad(torch.autograd.Function):
-    """The coef gradient of B5 (the F.grid_sample VJP); differentiating it
-    again raises (torch 2.11 has no derivative of grid_sampler_2d_backward)."""
+    """d<g, W(coef) img>/dcoef, the coef gradient of B5 (the F.grid_sample
+    VJP). Its backward recomputes it through `affine_warp_gather_plain`,
+    which is twice differentiable in coef on every torch version."""
 
     @staticmethod
     def forward(ctx, g, img, coef, out_hw):
+        ctx.save_for_backward(g, img, coef)
+        ctx.out_hw = out_hw
         with torch.enable_grad():
             leaf = coef.detach().requires_grad_()
             y = affine_warp_plain(img.detach(), leaf, out_hw)
@@ -794,7 +808,8 @@ class _AffineWarpCoefGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gg):
-        raise NotImplementedError(_COEF_SECOND_ORDER)
+        return (*_grads_by_recompute(_coef_grad_gather, ctx, ctx.saved_tensors,
+                                     gg, ctx.out_hw), None)
 
 
 def _affine_warp_call(img, coef, out_hw):
@@ -809,7 +824,7 @@ def affine_warp(img, coef, out_hw):
     """Bilinear warp with zero padding: img (N, C, H, W) float32/bfloat16;
     coef (N, 6) float32 pixel-space affine [ax, bx, cx, ay, by, cy] (see
     `affine_warp_grid`); returns (N, C, Ho, Wo) in img's dtype. No bound on
-    the affine's scale. Differentiable twice in img; once in coef."""
+    the affine's scale. Differentiable twice in img and coef."""
     out_hw = tuple(int(v) for v in out_hw)
     _affine_warp_args(img, coef, out_hw)
     return _affine_warp_call(img, coef, out_hw)

@@ -10,8 +10,9 @@ phase-major, which `unpack_frame` finishes on the host. Inside, activations
 are NCHW. Compute dtype is bfloat16 by default; the modules are cast once
 when the pipeline is built. Style preparation (pSp encoder, mapping MLP,
 exemplar splice) runs in float32 whatever the compute dtype. The pipeline
-runs on the card unless it is built with `device="cpu"`. Not ported yet:
-device meshes (`mesh` raises NotImplementedError).
+runs on the card unless it is built with `device="cpu"`. With a `mesh`
+(parallel/mesh.py::make_mesh) it keeps one replica of the modules per mesh
+device and splits each batch's frames over them (frame-parallel serving).
 """
 
 from __future__ import annotations
@@ -107,6 +108,16 @@ class ToonifyPipeline:
     padding's halo out of the kept region. packed_output: `process_batch`
     returns (B, 2H, 2W, 12) phase-major uint8; `unpack_frame` finishes it
     (the video writer and `process_image` do so).
+
+    mesh: a `parallel.mesh.Mesh`; one replica of the VToonify model (its
+    mapping MLP included) and of BiSeNet per mesh device, in the compute
+    dtype. `process_batch` and `process_batch_with_parsing` split the
+    frames over the replicas (a batch the mesh does not divide is refused),
+    launch every chunk before waiting on any and return the frames in order
+    on the first device. Style preparation runs on the first device. A
+    replica's frames are the numbers one device gives for those frames in
+    one call (a one-frame share takes the unfolded style form, as a batch of
+    one does).
     """
 
     def __init__(self, vt, vt_cfg: VToonifyConfig, parsing, psp_params=None,
@@ -117,8 +128,12 @@ class ToonifyPipeline:
         """psp_params: a port `PSPEncoder`; latent_avg: its (n_styles, 512)
         mean code; exstyle: the exemplar's z+ code (1, n_latent, 512),
         before `zplus2wplus`."""
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError("ToonifyPipeline: mesh not ported yet")
+            if device is not None and torch.device(device) != mesh.devices[0]:
+                raise ValueError(f"ToonifyPipeline: device {device} is not the "
+                                 f"mesh's first device {mesh.devices[0]}")
+            device = mesh.devices[0]
         self.vt_cfg = vt_cfg
         self.size_bucket = size_bucket
         self.bucket_margin = bucket_margin
@@ -127,6 +142,16 @@ class ToonifyPipeline:
         self.device = resolve_device(device)
         self.vt = copy.deepcopy(vt).to(self.device, dtype)
         self.parsing = copy.deepcopy(parsing).to(self.device, dtype)
+        # (device, vt, parsing) per mesh device; the first is the pipeline's own
+        self._replicas = [(self.device, self.vt, self.parsing)]
+        if mesh is not None:
+            from vtoonify_tpu_torch.parallel.mesh import shard_params
+
+            rest = mesh.devices[1:]
+            if rest:
+                sub = type(mesh)(rest)
+                self._replicas += list(zip(rest, shard_params(self.vt, sub),
+                                           shard_params(self.parsing, sub)))
         gp = vt.generator.generator if vt_cfg.backbone == "dualstylegan" else vt.generator
         self._mapping = nn.Module()  # holds `style`, all that style_mlp reads
         self._mapping.style = copy.deepcopy(gp.style).to(self.device, torch.float32)
@@ -193,11 +218,9 @@ class ToonifyPipeline:
             if pad_h or pad_w:
                 frames_u8 = np.pad(frames_u8, ((0, 0), (0, pad_h), (0, pad_w), (0, 0)),
                                    mode="reflect")
-        frames = torch.as_tensor(frames_u8, device=self.device)
-        s_w = torch.as_tensor(s_w, dtype=torch.float32, device=self.device)
-        with torch.inference_mode():
-            out = frame_graph(self.vt, self.vt_cfg, self.parsing, frames, s_w,
-                              float(d_s), self.dtype, self.packed_output)
+        out = self._run(lambda vt, parsing, f, sw: frame_graph(
+            vt, self.vt_cfg, parsing, f, sw, float(d_s), self.dtype,
+            self.packed_output), s_w, frames_u8)
         if pad_h or pad_w or mg:
             s = 2 if self.packed_output else 4  # a packed row covers 2 pixels
             oh = out.shape[1] - s * (pad_h + mg)
@@ -207,13 +230,31 @@ class ToonifyPipeline:
 
     def process_batch_with_parsing(self, frames_u8, x_p, s_w, d_s: float):
         """process_batch with precomputed parsing maps x_p (B, H, W, 19)."""
-        frames = torch.as_tensor(np.asarray(frames_u8), device=self.device)
-        x_p = torch.as_tensor(x_p, device=self.device)
-        s_w = torch.as_tensor(s_w, dtype=torch.float32, device=self.device)
+        return self._run(lambda vt, parsing, f, sw, p: frame_graph_with_parsing(
+            vt, self.vt_cfg, f, p, sw, float(d_s), self.dtype,
+            self.packed_output), s_w, np.asarray(frames_u8), x_p)
+
+    def _run(self, graph, s_w, *batches):
+        """graph(vt, parsing, frames, s_w, *rest) on each replica's share of
+        `batches` = (frames, *rest) (host arrays or tensors, frame axis first): every
+        chunk is uploaded and launched before any is waited on; the outputs
+        are concatenated in frame order on the first device."""
+        if len(self._replicas) == 1:
+            rows = [slice(None)]
+        else:
+            from vtoonify_tpu_torch.parallel.mesh import shard_batch
+
+            rows = shard_batch(self.mesh, len(batches[0]))
+        chunks = [[torch.as_tensor(b[r], device=dev) for b in batches]
+                  for r, (dev, _, _) in zip(rows, self._replicas)]
+        outs = []
         with torch.inference_mode():
-            return frame_graph_with_parsing(self.vt, self.vt_cfg, frames, x_p,
-                                            s_w, float(d_s), self.dtype,
-                                            self.packed_output)
+            for (dev, vt, parsing), c in zip(self._replicas, chunks):
+                sw = torch.as_tensor(s_w, dtype=torch.float32, device=dev)
+                outs.append(graph(vt, parsing, c[0], sw, *c[1:]))
+        if len(outs) == 1:
+            return outs[0]
+        return torch.cat([o.to(self.device) for o in outs])
 
     def process_image(self, frame_u8, s_w, d_s: float) -> np.ndarray:
         out = self.process_batch(np.asarray(frame_u8)[None], s_w, d_s)[0].cpu().numpy()

@@ -231,9 +231,18 @@ def toonify_frames(
 
     def submit(batch_frames):
         arr = np.stack(batch_frames)
+        if parsing_maps is not None:
+            pm = parsing_maps[frame_idx - len(batch_frames): frame_idx]
+        # a frame-parallel pipeline splits a batch evenly over its replicas:
+        # a short last batch is topped up with its last frame (not written)
+        mesh = getattr(pipeline, "mesh", None)
+        extra = 0 if mesh is None else -len(arr) % mesh.shape["dp"]
+        if extra:
+            arr = np.concatenate([arr, np.repeat(arr[-1:], extra, 0)])
+            if parsing_maps is not None:
+                pm = np.concatenate([pm, np.repeat(pm[-1:], extra, 0)])
         with timed("dispatch"):
             if parsing_maps is not None:
-                pm = parsing_maps[frame_idx - len(batch_frames): frame_idx]
                 out = pipeline.process_batch_with_parsing(arr, pm, s_w, style_degree)
             else:
                 out = pipeline.process_batch(arr, s_w, style_degree)

@@ -7,6 +7,12 @@ The two regularisers differentiate a gradient: they take the network as a
 callable and build the inner gradient with `create_graph=True`, so their
 penalty's backward runs through the kernels' double backwards
 (ops/kernels.py). Random draws come from an explicit `torch.Generator`.
+Under a process group every loss is held to the global batch's: the means
+over the batch are the ranks' means averaged with the gradients, and the
+batch statistics inside a nonlinearity (`mask_loss`, the path length's
+mean) are averaged over the ranks first. Those averages are collectives:
+under a group of more than one rank, every rank calls `mask_loss` and
+`g_path_regularize` together, or the lone caller blocks.
 """
 
 from __future__ import annotations
@@ -15,6 +21,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from vtoonify_tpu_torch.parallel import collectives as C
 
 
 def d_logistic_loss(real_pred, fake_pred):
@@ -58,7 +66,9 @@ def g_path_regularize(g_fn, latents, mean_path_length, generator=None,
         noise = noise / math.sqrt(img.shape[2] * img.shape[3])
     (grad,) = torch.autograd.grad((img * noise).sum(), latents, create_graph=True)
     path_lengths = grad.square().sum(dim=2).mean(dim=1).sqrt()
-    path_mean = mean_path_length + decay * (path_lengths.mean() - mean_path_length)
+    # the mean over the global batch under a process group (equal shares)
+    path_mean = mean_path_length + decay * (
+        C.mean_over_ranks(path_lengths.mean()) - mean_path_length)
     penalty = (path_lengths - path_mean).square().mean()
     return penalty, path_mean.detach(), path_lengths
 
@@ -91,9 +101,12 @@ def mse_loss(a, b):
 
 
 def mask_loss(m_Es, d_s, weight):
-    """L_msk (reference train_vtoonify_d.py:315-319)."""
+    """L_msk (reference train_vtoonify_d.py:315-319). Each mask's mean is
+    over the global batch under a process group (a nonlinear function of a
+    batch statistic: the mean of the ranks' means, each over an equal
+    share)."""
     gd_s = (1 - d_s) ** 2 * 0.9 + 0.1
     total = 0.0
     for m_E in m_Es:
-        total = total + torch.relu(m_E.mean() - gd_s) * weight
+        total = total + torch.relu(C.mean_over_ranks(m_E.mean()) - gd_s) * weight
     return total

@@ -22,6 +22,18 @@ Randomness: every draw of a step is gathered in a draws object
 (`PretrainDraws`, `TrainDDraws`, `TrainTDraws`; the `sample_*_draws`
 functions make one from a `torch.Generator`), so a step can be replayed with
 given draws (torch's streams cannot match `jax.random`).
+
+Data parallelism (one process per card, `parallel/multihost.py`): under a
+process group each rank holds its contiguous share of the global batch
+(the D steps' `style` rows; the T steps' `batch` is the global batch). The `sample_*_draws` functions draw the global batch's
+values from the same seed on every rank and keep the rank's rows; the
+gradients are averaged over the ranks (`collectives.gather_grad`) before
+every optimizer step; the states start from rank 0's parameters; the
+metrics are the ranks' mean; the discriminator's minibatch stddev groups
+the global batch (models/generator.py), and the losses are held to the
+global batch's (train/losses.py; LPIPS's sum below). No
+DistributedDataParallel: the steps run `functional_call` on explicit
+parameter lists with two optimizers and several `autograd.grad` calls.
 """
 
 from __future__ import annotations
@@ -46,6 +58,7 @@ from vtoonify_tpu_torch.models.vtoonify import (
 )
 from vtoonify_tpu_torch.nn.layers import set_trainable
 from vtoonify_tpu_torch.ops.interp import avg_pool
+from vtoonify_tpu_torch.parallel import collectives as C
 from vtoonify_tpu_torch.train import synth
 from vtoonify_tpu_torch.train.augment import sample_affine
 from vtoonify_tpu_torch.train.ema import ema_update
@@ -206,11 +219,21 @@ class TrainTState:
 
 
 class _Draws:
+    def _map(self, fn):
+        """fn on every tensor field and on every tensor of a list field;
+        other fields (per-step scalars) as they are."""
+        def one(v):
+            return [fn(t) for t in v] if isinstance(v, list) else (
+                fn(v) if torch.is_tensor(v) else v)
+        return type(self)(**{k: one(v) for k, v in vars(self).items()})
+
     def to(self, device):
-        def mv(v):
-            return [t.to(device) for t in v] if isinstance(v, list) else (
-                v.to(device) if torch.is_tensor(v) else v)
-        return type(self)(**{k: mv(v) for k, v in vars(self).items()})
+        return self._map(lambda t: t.to(device))
+
+    def local(self):
+        """This rank's rows of every field with a batch axis (every tensor's
+        leading axis); the whole draws in one process."""
+        return self._map(C.local_rows) if C.spans_ranks() else self
 
 
 @dataclass
@@ -277,37 +300,41 @@ def sample_pretrain_draws(generator: torch.Generator, batch: int,
                           cfg: VToonifyConfig, n_directions: int,
                           device=None) -> PretrainDraws:
     """One stage-1 step's draws from `generator` (made on its device,
-    returned on `device`)."""
+    returned on `device`) for a global batch of `batch`: this rank's rows
+    under a process group."""
     z, dir_idx = _draw_content(generator, batch, cfg, n_directions, device)
     return PretrainDraws(z, dir_idx, _draw_noise(generator, cfg, batch, device),
-                         _draw_noise(generator, cfg, batch, device))
+                         _draw_noise(generator, cfg, batch, device)).local()
 
 
 def sample_train_d_draws(generator: torch.Generator, batch: int,
                          cfg: VToonifyConfig, tcfg: TrainDConfig,
                          n_directions: int, device=None) -> TrainDDraws:
     """One stage-2 step's draws from `generator` (made on its device,
-    returned on `device`)."""
+    returned on `device`) for a global batch of `batch`: this rank's rows
+    under a process group."""
     z, dir_idx = _draw_content(generator, batch, cfg, n_directions, device)
     noise = [_draw_noise(generator, cfg, batch, device) for _ in range(3)]
     return TrainDDraws(z, dir_idx, *noise,
-                       *_draw_augment(generator, batch, cfg, tcfg, device))
+                       *_draw_augment(generator, batch, cfg, tcfg, device)).local()
 
 
 def sample_train_t_draws(generator: torch.Generator, batch: int,
                          cfg: VToonifyConfig, tcfg: TrainDConfig,
                          n_directions: int, device=None) -> TrainTDraws:
-    """One T stage-2 step's draws from `generator`."""
+    """One T stage-2 step's draws from `generator` for a global batch of
+    `batch` (this rank's rows under a process group)."""
     z, dir_idx = _draw_content(generator, batch, cfg, n_directions, device)
     noise = [_draw_noise(generator, cfg, batch, device) for _ in range(2)]
     return TrainTDraws(z, dir_idx, *noise,
-                       *_draw_augment(generator, batch, cfg, tcfg, device))
+                       *_draw_augment(generator, batch, cfg, tcfg, device)).local()
 
 
 def init_pretrain_state(vt, lr: float = 1e-4, device=None) -> PretrainState:
     """Moves `vt` to `device` (None: the card; raises without one), marks
     its encoder trainable and builds the encoder's EMA copy and Adam."""
     trainable, ema, _ = _trainable(vt, True, device)
+    C.broadcast_modules(trainable, ema)
     return PretrainState(trainable=trainable, ema=ema,
                          g_opt=_adam(trainable.parameters(), lr))
 
@@ -316,9 +343,12 @@ def init_train_d_state(vt, d, batch: int, cfg: VToonifyConfig,
                        tcfg: TrainDConfig, device=None) -> TrainDState:
     """Moves `vt` and `d` to `device` (None: the card; raises without one),
     marks the student's encoder / fusion_out / fusion_skip and all of `d`
-    trainable, and builds the EMA copies, the two Adams and the carry."""
+    trainable, and builds the EMA copies, the two Adams and the carry
+    (`batch`: this rank's rows). Under a process group every rank starts
+    from rank 0's parameters."""
     trainable, ema, dev = _trainable(vt, False, device)
     set_trainable(d.to(dev))
+    C.broadcast_modules(trainable, ema, d)
     return TrainDState(
         trainable=trainable, ema=ema, d=d,
         g_opt=_adam(trainable.parameters(), tcfg.lr),
@@ -332,6 +362,7 @@ def init_train_t_state(vt, d, tcfg: TrainDConfig, device=None) -> TrainTState:
     """`init_train_d_state` for VToonify-T: no color-jitter carry."""
     trainable, ema, dev = _trainable(vt, False, device)
     set_trainable(d.to(dev))
+    C.broadcast_modules(trainable, ema, d)
     return TrainTState(trainable=trainable, ema=ema, d=d,
                        g_opt=_adam(trainable.parameters(), tcfg.lr),
                        d_opt=_adam(d.parameters(), tcfg.lr))
@@ -347,7 +378,9 @@ def _to(module, device):
 
 
 def _apply_step(opt, params, grads):
-    for p, g in zip(params, grads):
+    """One optimizer step on `grads`, averaged over the ranks first under a
+    process group."""
+    for p, g in zip(params, C.gather_grad(grads)):
         p.grad = g
     opt.step()
     opt.zero_grad(set_to_none=True)
@@ -386,7 +419,7 @@ def _feature_step(state, frozen: dict, cfg: VToonifyConfig, data: dict, style,
     _apply_step(state.g_opt, params, torch.autograd.grad(loss, params))
     ema_update(state.ema, state.trainable)
     state.step += 1
-    return {"emse": loss.detach()}
+    return C.reduce_loss_dict({"emse": loss.detach()})
 
 
 def pretrain_step(state: PretrainState, frozen: dict, parsing,
@@ -404,8 +437,8 @@ def pretrain_step(state: PretrainState, frozen: dict, parsing,
         _to(m, dev)
     directions, style = directions.to(dev), style.to(dev)
     if draws is None:
-        draws = sample_pretrain_draws(generator, style.shape[0], cfg,
-                                      directions.shape[0], device=dev)
+        draws = sample_pretrain_draws(generator, style.shape[0] * C.get_world_size(),
+                                      cfg, directions.shape[0], device=dev)
     sdt = _synth_cast(synth_dtype, compute_dtype)
     teacher = _Bound(vt=_Bound(**frozen, **dict(state.trainable.items())),
                      parsing=parsing)
@@ -520,9 +553,11 @@ def _gan_step(state, frozen: dict, lpips, cfg: VToonifyConfig,
     fake_pred = _call(disc, d_frozen, d_pred, fake)
     g_adv = g_nonsaturating_loss(fake_pred) * tcfg.adv_loss
     g_rec = mse_loss(fake, real_output) * tcfg.grec_loss
+    # a sum over the batch: over the global batch, each rank's share counts
+    # world-size times once the gradients are averaged
     g_feat = _up(run_lpips(_cast(avg_pool(fake, pool_to_512), cdt),
                            _cast(avg_pool(real_output, pool_to_512), cdt))
-                 ).sum() * tcfg.perc_loss
+                 ).sum() * (tcfg.perc_loss * C.get_world_size())
     if with_mask:
         g_msk = mask_loss(m_Es, d_s, tcfg.msk_loss)
 
@@ -546,8 +581,9 @@ def _gan_step(state, frozen: dict, lpips, cfg: VToonifyConfig,
     state.step += 1
     metrics["d"] = d_loss
     dev = real_output.device
-    return {k: torch.as_tensor(v, dtype=torch.float32, device=dev).detach()
-            for k, v in metrics.items()}
+    return C.reduce_loss_dict(
+        {k: torch.as_tensor(v, dtype=torch.float32, device=dev).detach()
+         for k, v in metrics.items()})
 
 
 def train_d_step(state: TrainDState, frozen: dict, parsing, psp, psp_cfg,
@@ -571,7 +607,7 @@ def train_d_step(state: TrainDState, frozen: dict, parsing, psp, psp_cfg,
     latent_avg = None if latent_avg is None else latent_avg.to(dev)
     b = style.shape[0]
     if draws is None:
-        draws = sample_train_d_draws(generator, b, cfg, tcfg,
+        draws = sample_train_d_draws(generator, b * C.get_world_size(), cfg, tcfg,
                                      directions.shape[0], device=dev)
 
     # ---- data synthesis: the frozen teachers, no gradient -------------------
@@ -600,7 +636,8 @@ def train_t_step(state: TrainTState, frozen: dict, base, parsing, psp, psp_cfg,
     """One full VToonify-T iteration (train_vtoonify_t.py:192-276): no style
     degree, an unconditional D (`dcfg.use_condition` False), no mask loss,
     no color-jitter carry. `frozen` holds the blended G1 as `generator`,
-    `base` the un-blended G0. Mutates `state`; returns {g, gr, gf, tp, d}."""
+    `base` the un-blended G0, `batch` the global batch. Mutates `state`;
+    returns {g, gr, gf, tp, d}."""
     dev = _device_of(state)
     for m in (*frozen.values(), base, parsing, psp, lpips):
         _to(m, dev)
