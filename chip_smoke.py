@@ -13,6 +13,7 @@
                                     # auxiliary models alone
     python3 chip_smoke.py --dist    # frame-parallel serving and
                                     # data-parallel training alone
+    python3 chip_smoke.py --sp      # one frame split by rows alone
 
 Builds the port's five hand-written kernels from vtoonify_tpu_torch/csrc
 with nvcc (sm_90a, one nvcc per source, in parallel), checks each against its
@@ -91,7 +92,14 @@ with random weights from a seeded torch.Generator:
   all-reduce profiled), and over 2 gloo ranks with CUDA tensors sharing
   cuda:0 (this script started again as `--dist-rank R PORT DIR`, 1 row
   each), held to the 1-process step, with the --tiny T stage-2 step the
-  same way.
+  same way;
+* spatial: one frame split by rows (ToonifyPipeline over
+  make_spatial_mesh: 2 and 4 slabs on cuda:0, and one per visible card),
+  batch 1, the flagship: float32 against one device within SP_F32_*, bf16
+  against one device within one device's own bf16-vs-float32 gap on the
+  same frame, B1-B4 launched on the 2-slab path, and host p50 per call at
+  256 and 1024 px in (1024 and 4096 px out) beside one device, with the
+  halo copies and bytes per call and the peak memory per card.
 
 Each phase prints one JSON object on a line of its own with its wall
 seconds; the line before the last holds the per-kernel summary, and the last
@@ -193,6 +201,14 @@ DIST_DEADLINE_S = 400  # the 2-rank workers, from their start
 # bit-equal: bounded at that reading; against one device on the same 8
 # frames, bit-equal
 DP_SERVE_MAX_LSB, DP_SERVE_MEAN_LSB = 4, 1e-3
+# one frame split by rows against one device, float32 at 256 px in: the same
+# ops on row slabs with their halo rows; only the order of float32 sums
+# differs (the global means summed over slabs, a slab's conv may take
+# another cuDNN algorithm), which can move a value across one quantization
+# step. bf16 is held to one device's own bf16-vs-float32 gap on the frame
+SP_F32_MAX_LSB, SP_F32_MEAN_LSB = 1, 0.01
+SP_SLABS_ON_CUDA0 = (2, 4)  # and a mesh of every visible card
+SP_TIMED_PX, SP_REPS = (256, 1024), 5
 ENGINE_FRAMES, ENGINE_TIMED_FRAMES, ENGINE_BATCH, ENGINE_PX = 40, 160, 16, 256
 
 # pipeline_options: batch-16 packed/unpacked at the 256 px serving crop, the
@@ -421,7 +437,8 @@ def kernel_cases(rng, dev):
     cases = []
 
     def conv_case(label, b, size, cin, cout, modulated, act, summary=False):
-        x = t(b, cin, size, size)
+        h, w_px = (size, size) if isinstance(size, int) else size
+        x = t(b, cin, h, w_px)
         w = t(3, 3, cin, cout, scale=1.0 / np.sqrt(9 * cin))
         s = t(b, cin, scale=0.5, shift=1.0) if modulated else None
         d = t(b, cout, scale=0.1, shift=1.0) if modulated else None
@@ -434,7 +451,7 @@ def kernel_cases(rng, dev):
                 w_oihw = a[1].permute(3, 2, 0, 1).contiguous()
                 lib = lambda: F.conv2d(a[0], w_oihw, padding=1)  # noqa: E731
             work = (nbytes(dt, *a) + nbytes(dt, a[0]) * cout // cin,
-                    2 * 9 * cin * cout * size * size * b)
+                    2 * 9 * cin * cout * h * w_px * b)
             return lambda: K.modconv3x3(*a), lambda: K.modconv3x3_plain(*a), lib, work
         cases.append(Case("modconv3x3", label, make, summary))
 
@@ -473,9 +490,14 @@ def kernel_cases(rng, dev):
         conv_case(f"teacher {'upconv' if upc else 'conv'} {size}^2 512->"
                   f"{'4*' if upc else ''}512 raw b2", 2, size, 512,
                   2048 if upc else 512, True, False)
+    # spatial: a slab of the 1024 px conv and of the 512 -> 1024 up conv over
+    # 2 slabs, each with one halo row a side
+    conv_case("sp2 slab conv 514x1024 32->32", 1, (514, 1024), 32, 32, True, True)
+    conv_case("sp2 slab upconv 258x512 64->4*32", 1, (258, 512), 64, 128, True, True)
 
     for shape, summary in [((1, 512, 32, 32), True), ((4, 512, 32, 32), False),
                            ((18, 512), True), ((2, 512, 64, 64), False),
+                           ((1, 512, 16, 32), False),  # a slab of 2 (spatial)
                            *((s, False) for s in B2_TRAIN)]:
         x, bias = t(*shape), t(shape[1], scale=0.1)
 
@@ -510,6 +532,8 @@ def kernel_cases(rng, dev):
         for r in sizes:
             fir_case(f"upsample_2x ({b},3,{r},{r})", (b, 3, r, r), k_up, (2, 2),
                      (1, 1), (2, 1, 2, 1))
+    fir_case("sp2 slab upsample_2x (1,3,258,512) pads (2,1,0,-1)", (1, 3, 258, 512),
+             k_up, (2, 2), (1, 1), (2, 1, 0, -1))
     for r, c in D_BLUR:
         fir_case(f"D blur ({2},{c},{r},{r}) pad 2", (2, c, r, r), k_blur, (1, 1),
                  (1, 1), (2, 2, 2, 2), summary=True)
@@ -529,17 +553,19 @@ def kernel_cases(rng, dev):
     fir_case(f"SYM6 y-down (2,6,{half},1024)", (2, 6, half, 1024),
              sym6.flip(0)[:, None], (1, 1), (1, 2), (0, 0, -1, -1), reps=5)
 
-    for b, shapes in ((1, UPCONV), (2, UPCONV), (4, UPCONV), (2, CROP_UPCONV)):
+    for b, shapes in ((1, UPCONV), (2, UPCONV), (4, UPCONV), (2, CROP_UPCONV),
+                      (1, [((258, 512), None, 32)])):  # a slab of 2 (spatial)
         for size, _, cout in shapes:
-            x = t(b, 4 * cout, size, size)
+            h, w_px = (size, size) if isinstance(size, int) else size
+            x = t(b, 4 * cout, h, w_px)
 
             def make(dt, x=x):
                 a = x.to(dev, dt)
                 return (lambda: K.depth_to_space2(a, True),
                         lambda: K.depth_to_space2_plain(a, True),
                         lambda: F.pixel_shuffle(a, 2), (2 * nbytes(dt, a), 0))
-            cases.append(Case("depth_to_space2", f"({b},{4 * cout},{size},{size}) "
-                              "phase-minor", make, b == 1))
+            cases.append(Case("depth_to_space2", f"({b},{4 * cout},{h},{w_px}) "
+                              "phase-minor", make, b == 1 and h == w_px))
 
     # B5 at the flagship augment: (2, 6, 4120, 4120) -> (2, 6, 2060, 2060)
     gen = torch.Generator().manual_seed(SEED)
@@ -3719,6 +3745,154 @@ def distributed_phase(smi):
     return dict(launches)
 
 
+# ---------------------------------------------------------------------------
+# spatial: one frame split by rows
+
+
+def _lsb_diff(a, b):
+    d = (a.int() - b.int()).abs()
+    return d.max().item(), d.float().mean().item()
+
+
+def b1_row_parity():
+    """Why a slab's rows are gathered from an even row (parallel.spatial):
+    B1 on a frame against B1 on the frame with k zero rows on each side,
+    cropped, at the 1024 px conv's shape: the share of outputs that differ,
+    per dtype and k."""
+    from vtoonify_tpu_torch.ops import kernels as K
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn((1, 32, 1024, 1024), generator=g, device="cuda").to(dt)
+        w = (torch.randn((3, 3, 32, 32), generator=g, device="cuda") / 17).to(dt)
+        s, d = (torch.rand((2, 1, 32), generator=g, device="cuda") + 0.5).to(dt)
+        b = torch.randn(32, generator=g, device="cuda").to(dt)
+        y = K.modconv3x3(x, w, s, d, b)
+        for k in (1, 2):
+            z = torch.zeros_like(x[:, :, :k])
+            yk = K.modconv3x3(torch.cat([z, x, z], 2), w, s, d, b)[:, :, k:-k]
+            out[f"{str(dt)[6:]}_shift_{k}_share_differing"] = (y != yk).float().mean().item()
+    return out
+
+
+def spatial_phase(smi):
+    """The flagship pipeline at batch 1 over make_spatial_mesh(devices=
+    ["cuda:0"] * k) for k in SP_SLABS_ON_CUDA0 and over every visible card,
+    against the pipeline without a mesh: float32 within SP_F32_*, bf16
+    within one device's own bf16-vs-float32 gap on the same 256 px frame;
+    the launches of one 2-slab bf16 call (B1-B4 each launched); then each
+    bf16 pipeline timed at SP_TIMED_PX in, with the halo, reduction and
+    gather copies per call and the peak memory per card, and one call of
+    one device and of 2 slabs profiled at the largest. Returns those
+    launches."""
+    from vtoonify_tpu_torch.ops import kernels as K
+    from vtoonify_tpu_torch.parallel import spatial as S
+    from vtoonify_tpu_torch.parallel.mesh import make_spatial_mesh
+    from vtoonify_tpu_torch.pipeline.toonify import ToonifyPipeline
+
+    t0 = time.perf_counter()
+    cfg, vt, parsing = build_modules()
+    # serve_phases' style and first frame (an image with contrast), then a
+    # 1024 px frame
+    rng = np.random.RandomState(SEED)
+    s_w = rng.randn(1, cfg.n_latent, 512).astype(np.float32)
+    frames = {256: rng.randint(0, 256, (4, 256, 256, 3)).astype(np.uint8)[:1],
+              1024: rng.randint(0, 256, (1, 1024, 1024, 3)).astype(np.uint8)}
+    meshes = {"one_device": None,
+              **{f"sp{k}_cuda0": make_spatial_mesh(devices=["cuda:0"] * k)
+                 for k in SP_SLABS_ON_CUDA0},
+              "sp_all_cards": make_spatial_mesh()}
+    rec = {"config": "VToonifyConfig() + BiSeNet, batch 1, d_s 0.5",
+           "cards_visible": torch.cuda.device_count(),
+           "build_seconds": time.perf_counter() - t0, "nvidia_smi": smi,
+           "b1_row_parity": b1_row_parity()}
+    outs, pipes = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        for name, mesh in meshes.items():
+            pipe = ToonifyPipeline(vt, cfg, parsing, dtype=getattr(torch, dtype), mesh=mesh)
+            out = pipe.process_batch(frames[256], s_w, 0.5)
+            check(tuple(out.shape) == (1, 1024, 1024, 3) and out.dtype == torch.uint8
+                  and out.device == torch.device("cuda", 0),
+                  f"spatial {name} {dtype}: output {tuple(out.shape)} {out.dtype} {out.device}")
+            outs[dtype, name] = out
+            if dtype == "bfloat16":
+                pipes[name] = pipe
+            del pipe
+    del vt, parsing
+    gap = _lsb_diff(outs["bfloat16", "one_device"], outs["float32", "one_device"])
+    rec["one_device_bf16_vs_f32_max_mean_lsb"] = gap
+    rec["out_std_lsb"] = outs["bfloat16", "one_device"].float().std().item()
+    bad = []
+    for name in list(meshes)[1:]:
+        f32 = _lsb_diff(outs["float32", name], outs["float32", "one_device"])
+        bf16 = _lsb_diff(outs["bfloat16", name], outs["bfloat16", "one_device"])
+        rec[f"{name}_f32_vs_one_device_max_mean_lsb"] = f32
+        rec[f"{name}_bf16_vs_one_device_max_mean_lsb"] = bf16
+        if f32[0] > SP_F32_MAX_LSB or f32[1] > SP_F32_MEAN_LSB:
+            bad.append(f"{name} float32 {f32}")
+        if bf16[0] > gap[0] or bf16[1] > gap[1]:
+            bad.append(f"{name} bf16 {bf16} above one device's bf16-vs-f32 gap {gap}")
+    del outs
+
+    # the launches of the 2-slab path, counted from 0 just before it
+    sp = pipes[f"sp{SP_SLABS_ON_CUDA0[0]}_cuda0"]
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    S.reset_stats()
+    sp.process_batch(frames[256], s_w, 0.5)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    rec["launches_per_call_sp2"] = launches
+    rec["copies_per_call_sp2_256px"] = S.stats()
+    for name in ("modconv3x3", "fused_leaky_relu", "upfirdn2d", "depth_to_space2"):
+        if not launches[name]:
+            bad.append(f"kernel {name} was not launched by the spatial path")
+
+    # timing: host p50 per batch-1 call ending in a synchronize, bf16
+    n_cards = torch.cuda.device_count()
+    for px in SP_TIMED_PX:
+        ref = None
+        for name, pipe in pipes.items():
+            call = lambda: pipe.process_batch(frames[px], s_w, 0.5)  # noqa: E731
+            out = call()
+            torch.cuda.synchronize()
+            if ref is None:
+                ref = out
+                rec[f"out_std_lsb_{px}px"] = out.float().std().item()
+            else:
+                rec[f"{name}_{px}px_bf16_vs_one_device_max_mean_lsb"] = _lsb_diff(out, ref)
+            del out
+            resident = [torch.cuda.memory_allocated(d) / 2**30 for d in range(n_cards)]
+            for d in range(n_cards):
+                torch.cuda.reset_peak_memory_stats(d)
+            S.reset_stats()
+            times = []
+            for _ in range(SP_REPS):
+                t1 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+            rec[f"{name}_{px}px"] = {
+                "p50_ms_per_call": float(np.median(times)),
+                "min_max_ms": [min(times), max(times)],
+                "copies_per_call": {k: v / SP_REPS for k, v in S.stats().items()},
+                "resident_gib_per_card": resident,
+                "peak_gib_per_card": [torch.cuda.max_memory_allocated(d) / 2**30
+                                      for d in range(n_cards)]}
+            if px == max(SP_TIMED_PX) and name in ("one_device", "sp2_cuda0"):
+                rec[f"{name}_{px}px"]["profile"] = device_profile(
+                    call, f"spatial_profile_{name}_{px}px.txt")
+        del ref
+    del pipes, sp
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    emit({"phase": "spatial", **rec, "failures": bad})
+    check(not bad, f"spatial: {bad}")
+    check(rec["out_std_lsb"] > 10, "spatial: the one-device image is flat")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -3796,8 +3970,12 @@ def main():
               **affine_warp_coef_second_order(dev, np.random.RandomState(SEED + 30))})
         distributed_phase(smi)
         return
+    if sys.argv[1:] == ["--sp"]:
+        # one frame split by rows alone; no result line
+        spatial_phase(smi)
+        return
     check(len(sys.argv) == 1, "usage: chip_smoke.py [--kernels NAME[,NAME...] | --paths "
-          "| --apps | --raft | --reg | --dist]")
+          "| --apps | --raft | --reg | --dist | --sp]")
     summary = kernel_phase(dev)
     launches_serve = serve_phases(smi)
     launches_style_engine = style_engine_phase(smi)
@@ -3819,6 +3997,7 @@ def main():
     launches_raft = raft_train_phase(smi)
     launches_reg = regularise_phase(smi)
     launches_dist = distributed_phase(smi)
+    launches_spatial = spatial_phase(smi)
     paths = {"serve": launches_serve, "style_engine": launches_style_engine,
              "pipeline_options": launches_options, "serve_http": launches_http,
              "smooth_parsing": launches_smooth, "release_gate": launches_gate,
@@ -3826,7 +4005,7 @@ def main():
              "pretrain_t_step": launches_t["pretrain_t"],
              "train_t_step": launches_t["train_t"], "train_cli": launches_cli,
              "raft_train_step": launches_raft, "regularise": launches_reg,
-             "distributed": launches_dist}
+             "distributed": launches_dist, "spatial": launches_spatial}
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [

@@ -86,7 +86,8 @@ def test_cli_image_end_to_end(zoo, tmp_path):
 
 @pytest.mark.parametrize("extra,message", [
     # (the id kept from when --sp and --dp were both refused as not ported)
-    pytest.param(["--sp", "2"], "north star", id="extra0-not ported yet"),
+    pytest.param(["--sp", "2"], "--sp 2 but only 0 devices are visible",
+                 id="extra0-not ported yet"),
     (["--style_id", "5"], r"--style_id 5 out of range.*styles 0\.\.2"),
     (["--dp", "2"], "--dp 2 but only 0 devices are visible"),
 ])

@@ -50,6 +50,7 @@ from vtoonify_tpu.train import losses as JLS
 from vtoonify_tpu_torch.models import bisenet as B
 from vtoonify_tpu_torch.models import generator as G
 from vtoonify_tpu_torch.parallel import mesh as M
+from vtoonify_tpu_torch.parallel import spatial as S
 from vtoonify_tpu_torch.pipeline import toonify as T
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -327,8 +328,9 @@ def test_batch_statistics_in_losses_match_jax(jobs):
 
 
 def test_mesh_helpers_match_jax():
-    """make_mesh's shape as JAX's; the batch split, its refusal and the
-    options the port leaves out."""
+    """make_mesh's and make_spatial_mesh's shapes as JAX's; the batch split
+    and its refusal; the rows round-trip through shard_array_spatial; tensor
+    parallelism is refused (the next slice)."""
     mesh = M.make_mesh(devices=["cpu", "cpu"])
     assert mesh.shape == dict(JM.make_mesh(2).shape)
     assert M.replicated(mesh) == (torch.device("cpu"),) * 2
@@ -340,10 +342,16 @@ def test_mesh_helpers_match_jax():
     assert M.shard_process_local_batch(x) is x  # one process: the whole batch
     with pytest.raises(ValueError, match="not divisible by dp width 2"):
         M.shard_batch(mesh, 5)
-    for fn in (lambda: M.make_mesh(devices=["cpu"] * 2, tp=2),
-               lambda: M.make_spatial_mesh(2), lambda: M.shard_spatial(mesh)):
-        with pytest.raises(NotImplementedError, match="north star"):
-            fn()
+    for n in (2, 8):
+        sp = M.make_spatial_mesh(devices=["cpu"] * n)
+        assert sp.shape == dict(JM.make_spatial_mesh(n).shape)
+        x = np.arange(2 * 13 * 3).reshape(2, 13, 3, 1)
+        slabs = M.shard_array_spatial(x, sp)
+        assert [p.shape[1] for p in slabs.parts] == [s.stop - s.start
+                                                     for s in M.shard_spatial(sp, 13)]
+        np.testing.assert_array_equal(S.gather(slabs).numpy(), x)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        M.make_mesh(devices=["cpu"] * 2, tp=2)
     replicas = M.shard_params(torch.nn.Linear(2, 2), mesh)
     assert len(replicas) == 2 and replicas[0] is not replicas[1]
 

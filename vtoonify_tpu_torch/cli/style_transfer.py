@@ -77,8 +77,9 @@ def build_parser():
                         "'high' TF32 for convs and matmuls, 'default' "
                         "torch's own (TF32 for cuDNN convs only)")
     p.add_argument("--sp", type=int, default=None,
-                   help="spatial partitioning over N devices (not ported: "
-                        "a TPU layout the north star leaves out)")
+                   help="spatial partitioning: split each frame's rows over "
+                        "the first N cards (batch-1 latency scale-out; halo "
+                        "rows and global means exchanged between them)")
     p.add_argument("--dp", type=int, default=None,
                    help="frame parallelism: a replica of the model on each "
                         "of the first N cards, the frames of a batch split "
@@ -111,19 +112,18 @@ def set_float32_precision(prec):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.sp:
-        raise SystemExit("error: --sp (GSPMD spatial partitioning) is a TPU "
-                         "layout the north star leaves out of "
-                         "vtoonify_tpu_torch (ROADMAP.md); use --dp")
+    if args.sp and args.dp:
+        raise SystemExit("error: --sp and --dp are mutually exclusive")
     mesh = None
-    if args.dp:
-        from vtoonify_tpu_torch.parallel.mesh import make_mesh
+    if args.sp or args.dp:
+        from vtoonify_tpu_torch.parallel.mesh import make_mesh, make_spatial_mesh
 
+        flag, n = ("--sp", args.sp) if args.sp else ("--dp", args.dp)
         visible = 0 if args.cpu else torch.cuda.device_count()
-        if visible < args.dp:
-            raise SystemExit(f"error: --dp {args.dp} but only {visible} "
+        if visible < n:
+            raise SystemExit(f"error: {flag} {n} but only {visible} "
                              "devices are visible")
-        mesh = make_mesh(args.dp)
+        mesh = make_spatial_mesh(n) if args.sp else make_mesh(n)
 
     prec = args.matmul_precision or ("highest" if args.fp32 else None)
     if prec is not None:

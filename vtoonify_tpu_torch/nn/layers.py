@@ -21,6 +21,11 @@ noise add is followed by kernel B2. The up conv's interleave runs in kernel
 B4; ToRGB's skip upsample, conv_layer's downsampling blur and the blurs of
 the non-fused up and down modulated convs in kernel B3; conv_layer's
 activation in kernel B2. All five carry gradients, twice.
+The serving path's layers also take a row-sharded activation
+(`parallel.spatial`: one frame's rows split over an 'sp' mesh): the convs
+read halo rows from the neighbouring slabs, B1 runs on each slab with its
+halo rows and drops the output rows they give, and `instance_norm_2d` sums
+its statistics over the slabs.
 Not ported (TPU-only): the space-to-depth packed stage variants and the
 cat2-split weight storage (fusion convs and the discriminator's final conv
 hold one merged weight).
@@ -39,6 +44,7 @@ from vtoonify_tpu_torch.ops import kernels
 from vtoonify_tpu_torch.ops.convs import conv2d, conv_transpose2d
 from vtoonify_tpu_torch.ops.fused_act import fused_leaky_relu
 from vtoonify_tpu_torch.ops.upfirdn2d import blur, make_kernel, upsample_2x
+from vtoonify_tpu_torch.parallel import spatial
 
 BLUR_KERNEL = (1.0, 3.0, 3.0, 1.0)
 
@@ -267,15 +273,22 @@ def modulated_conv2d(p, x, style, demodulate=True, upsample=False,
     fused_up = fuse_upsample and len(blur_kernel) == 4
     if kh == 3 and not downsample and (fused_up or not upsample):
         w_hwio = wsc.permute(2, 3, 1, 0)
-        x = x.contiguous()
         if not upsample:
-            return kernels.modconv3x3(x, w_hwio.contiguous(), s_x, d_x, bias)
-        k_cat = _fused_upsample_weight(w_hwio, blur_kernel).contiguous()
-        # per-output-channel epilogue operands repeat per phase (o*4 + phase)
-        d4 = None if d_x is None else d_x.repeat_interleave(4, dim=1)
-        b4 = None if bias is None else bias.repeat_interleave(4)
-        y = kernels.modconv3x3(x, k_cat, s_x, d4, b4)
-        return depth_to_space2(y, phase_minor=True)
+            w_k, d_k, b_k = w_hwio.contiguous(), d_x, bias
+        else:
+            w_k = _fused_upsample_weight(w_hwio, blur_kernel).contiguous()
+            # per-output-channel epilogue operands repeat per phase (o*4 + phase)
+            d_k = None if d_x is None else d_x.repeat_interleave(4, dim=1)
+            b_k = None if bias is None else bias.repeat_interleave(4)
+
+        def conv(t, *operands):
+            y = kernels.modconv3x3(t, *operands)
+            return depth_to_space2(y, phase_minor=True) if upsample else y
+
+        if isinstance(x, spatial.RowSharded):
+            return spatial.same_conv3x3(x, lambda t: conv(t, *(
+                spatial.local(v, t.device) for v in (w_k, s_x, d_k, b_k))), upsample)
+        return conv(x.contiguous(), w_k, s_x, d_k, b_k)
 
     if s_x is not None:
         x = x * s_x[:, :, None, None]
@@ -405,7 +418,17 @@ def prelu(p, x):
 
 
 def instance_norm_2d(x, eps: float = 1e-5):
-    """nn.InstanceNorm2d(affine=False) — per (N, C) spatial stats."""
+    """nn.InstanceNorm2d(affine=False) — per (N, C) spatial stats. On row
+    slabs the mean and then the biased variance are sums over the slabs, in
+    float32 (float64 for float64), cast to x's dtype as torch's are."""
+    if isinstance(x, spatial.RowSharded):
+        n = x.shape[2] * x.shape[3]
+        acc = torch.promote_types(x.dtype, torch.float32)
+        mean = spatial.all_reduce_sum([t.to(acc).sum((2, 3), keepdim=True)
+                                       for t in x.parts]) / n
+        var = spatial.all_reduce_sum([(t.to(acc) - m).square().sum((2, 3), keepdim=True)
+                                      for t, m in zip(x.parts, mean.parts)]) / n
+        return (x - mean.to(x.dtype)) * torch.rsqrt(var.to(x.dtype) + eps)
     mean = torch.mean(x, dim=(2, 3), keepdim=True)
     var = torch.var(x, dim=(2, 3), keepdim=True, unbiased=False)
     return (x - mean) * torch.rsqrt(var + eps)

@@ -4,12 +4,14 @@
 
 The channel axis is dim 1 (NCHW activations, (N, C) linear outputs), where
 the JAX package keeps it last. The work runs in kernel B2
-(`ops.kernels.fused_leaky_relu`).
+(`ops.kernels.fused_leaky_relu`), slab by slab on row slabs
+(`parallel.spatial`).
 """
 
 from __future__ import annotations
 
 from vtoonify_tpu_torch.ops import kernels
+from vtoonify_tpu_torch.parallel import spatial
 
 SCALE = kernels.SQRT2
 
@@ -18,4 +20,7 @@ def fused_leaky_relu(x, bias=None, negative_slope: float = 0.2,
                      scale: float = SCALE):
     if bias is not None:
         bias = bias.to(x.dtype).contiguous()
+    if isinstance(x, spatial.Sharded):
+        return x.map(lambda t: kernels.fused_leaky_relu(
+            t.contiguous(), spatial.local(bias, t.device), negative_slope, scale))
     return kernels.fused_leaky_relu(x.contiguous(), bias, negative_slope, scale)

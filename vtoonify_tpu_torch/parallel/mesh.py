@@ -1,13 +1,14 @@
-"""Device meshes for data parallelism in one process (port of
-vtoonify_tpu/parallel/mesh.py).
+"""Device meshes in one process (port of vtoonify_tpu/parallel/mesh.py).
 
 JAX shards one logical array over a `jax.sharding.Mesh`; the port keeps a
-replica of each module per device along `dp` and splits the batch's leading
-axis over them (frame-parallel serving: `ToonifyPipeline(mesh=...)`).
-Training across cards runs one process per card instead
-(`parallel.multihost`, `parallel.collectives`). GSPMD tensor (`tp > 1`) and
-spatial (`make_spatial_mesh`, `shard_spatial`) partitioning are not ported
-(ROADMAP.md, north star): they raise NotImplementedError.
+replica of each module per device and splits the work over them: along
+'dp' the batch's leading axis (frame-parallel serving,
+`ToonifyPipeline(mesh=make_mesh(...))`), along 'sp' each frame's rows
+(`ToonifyPipeline(mesh=make_spatial_mesh(...))`, the halos and global means
+in `parallel.spatial`). Training across cards runs one process per card
+instead (`parallel.multihost`, `parallel.collectives`). Tensor parallelism
+(`tp > 1`) is the next slice of the port (ROADMAP.md, queue A) and raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -18,9 +19,9 @@ from typing import Optional
 
 import torch
 
-_NOT_PORTED = ("GSPMD tensor and spatial partitioning are TPU layouts the "
-               "north star leaves out (ROADMAP.md); vtoonify_tpu_torch has "
-               "data parallelism over 'dp' only")
+_TP_NOT_YET = ("tensor parallelism over 'tp' is not ported yet (ROADMAP.md, "
+               "queue A: TP serving and training); vtoonify_tpu_torch splits "
+               "frames over 'dp' and rows over 'sp'")
 
 
 def batch_not_divisible(batch: int, n: int, what: str = "dp width") -> str:
@@ -31,12 +32,15 @@ def batch_not_divisible(batch: int, n: int, what: str = "dp width") -> str:
 
 @dataclass(frozen=True)
 class Mesh:
-    """A 1-D mesh: `devices` along 'dp' (the same device may appear twice);
-    `shape` as a JAX mesh reports it."""
+    """A 1-D mesh: `devices` along `axis`, 'dp' or 'sp' (the same device
+    may appear twice); `shape` as a JAX mesh reports it."""
     devices: tuple
+    axis: str = "dp"
 
     @property
     def shape(self) -> dict:
+        if self.axis == "sp":
+            return {"sp": len(self.devices)}
         return {"dp": len(self.devices), "tp": 1}
 
 
@@ -47,29 +51,51 @@ def _visible_cards() -> list:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
-def make_mesh(n_devices: Optional[int] = None, tp: int = 1, devices=None) -> Mesh:
-    """The first `n_devices` of `devices` (default: every visible card)
-    along 'dp'."""
-    if tp != 1:
-        raise NotImplementedError(f"make_mesh(tp={tp}): {_NOT_PORTED}")
+def _mesh(name, n_devices, devices, axis) -> Mesh:
     devices = [torch.device(d) for d in
                (devices if devices is not None else _visible_cards())]
     if n_devices is not None:
         if n_devices > len(devices):
-            raise ValueError(f"make_mesh: {n_devices} devices asked for, "
+            raise ValueError(f"{name}: {n_devices} devices asked for, "
                              f"{len(devices)} available")
         devices = devices[:n_devices]
     if not devices:
-        raise ValueError("make_mesh: no devices")
-    return Mesh(tuple(devices))
+        raise ValueError(f"{name}: no devices")
+    return Mesh(tuple(devices), axis)
 
 
-def make_spatial_mesh(n_devices: Optional[int] = None, devices=None):
-    raise NotImplementedError(f"make_spatial_mesh: {_NOT_PORTED}")
+def make_mesh(n_devices: Optional[int] = None, tp: int = 1, devices=None) -> Mesh:
+    """The first `n_devices` of `devices` (default: every visible card)
+    along 'dp'."""
+    if tp != 1:
+        raise NotImplementedError(f"make_mesh(tp={tp}): {_TP_NOT_YET}")
+    return _mesh("make_mesh", n_devices, devices, "dp")
 
 
-def shard_spatial(mesh, ndim: int = 4):
-    raise NotImplementedError(f"shard_spatial: {_NOT_PORTED}")
+def make_spatial_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
+    """The first `n_devices` of `devices` (default: every visible card;
+    raises when there is none) along 'sp': each frame's rows split over
+    them."""
+    return _mesh("make_spatial_mesh", n_devices, devices, "sp")
+
+
+def shard_spatial(mesh: Mesh, height: int) -> list:
+    """The rows of a frame of `height` rows each device along 'sp' takes:
+    contiguous slices in device order, as even as they can be (the first
+    height % n one row longer; with fewer rows than devices the last
+    devices take none)."""
+    from vtoonify_tpu_torch.parallel.spatial import partition
+
+    return [slice(a, b) for a, b in partition(height, len(mesh.devices))]
+
+
+def shard_array_spatial(x, mesh: Mesh):
+    """The rows of NHWC frames x (axis 1, as JAX's P(None, 'sp')) split
+    over 'sp': a `parallel.spatial.RowSharded` with one slab on each
+    device."""
+    from vtoonify_tpu_torch.parallel.spatial import shard_rows
+
+    return shard_rows(x, mesh.devices, 1)
 
 
 def replicated(mesh: Mesh) -> tuple:
@@ -93,6 +119,9 @@ def shard_batch(mesh: Mesh, batch: int) -> list:
     """The rows of a batch each device along 'dp' takes: equal contiguous
     slices, in device order. A batch that 'dp' does not divide is refused,
     as JAX's device_put onto P('dp') refuses it."""
+    if mesh.axis != "dp":
+        raise ValueError(f"shard_batch: a mesh along '{mesh.axis}' splits rows, "
+                         "not frames (shard_spatial)")
     n = len(mesh.devices)
     if batch % n:
         raise ValueError(batch_not_divisible(batch, n))

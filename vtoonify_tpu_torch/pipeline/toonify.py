@@ -12,7 +12,9 @@ when the pipeline is built. Style preparation (pSp encoder, mapping MLP,
 exemplar splice) runs in float32 whatever the compute dtype. The pipeline
 runs on the card unless it is built with `device="cpu"`. With a `mesh`
 (parallel/mesh.py::make_mesh) it keeps one replica of the modules per mesh
-device and splits each batch's frames over them (frame-parallel serving).
+device and splits each batch's frames over them (frame-parallel serving);
+with a spatial mesh (`make_spatial_mesh`) it splits each frame's rows over
+the devices instead, and the graph runs on row slabs (`parallel.spatial`).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from vtoonify_tpu_torch.models.generator import style_mlp
 from vtoonify_tpu_torch.models.psp_encoder import PSPEncoderConfig, psp_encoder_apply
 from vtoonify_tpu_torch.models.vtoonify import VToonifyConfig, vtoonify_apply
 from vtoonify_tpu_torch.ops.interp import resize_bilinear, resize_nearest
+from vtoonify_tpu_torch.parallel import spatial
 
 PARSING_WEIGHT = 1.0 / 16.0  # reference style_transfer.py:174
 
@@ -44,50 +47,67 @@ def _to_bytes(out, packed):
     phase-major (B, 2H, 2W, 12) layout, out[b, 2i+a, 2j+c', ch] at channel
     (2a+c')*3 + ch: one permutation of the bytes either way. (The JAX
     package's packed synthesis stages are TPU layouts and are not ported;
-    the port is held to the bytes.)"""
+    the port is held to the bytes.) Row slabs are packed slab by slab, split
+    at even rows first."""
     if not packed:
         return out.permute(0, 2, 3, 1).contiguous()
+    if isinstance(out, spatial.RowSharded):
+        return spatial.aligned(out, 2).map_slabs(lambda t: _to_bytes(t, True), axis=1,
+                                                 scale=(1, 2))
     b, c, h, w = out.shape
     return (out.view(b, c, h // 2, 2, w // 2, 2).permute(0, 2, 4, 3, 5, 1)
             .reshape(b, h // 2, w // 2, 4 * c))
 
 
-def _synthesize(vt, vt_cfg, x, x_p, s_w, d_s, dtype, packed=False):
+def _stylize(vt, vt_cfg, x, x_p, s_w, d_s, dtype):
     inputs = torch.cat([x, x_p.to(dtype) * PARSING_WEIGHT], dim=1)
     # a batch-1 style (one style code per video) is NOT broadcast to the
     # frame batch: the modulated convs fold it into their kernels
     s_w_b = s_w.to(dtype)
     if s_w_b.ndim == 2:
         s_w_b = s_w_b[None]
-    y = vtoonify_apply(vt, vt_cfg, inputs, s_w_b, d_s=d_s)
+    return vtoonify_apply(vt, vt_cfg, inputs, s_w_b, d_s=d_s)
+
+
+def _quantize(y, packed=False):
     y = torch.clamp(y, -1.0, 1.0)
     # round half to even, in float32, as the JAX graph quantizes
     out = torch.round((y.float() + 1.0) * 127.5).to(torch.uint8)
     return _to_bytes(out, packed)
 
 
-def frame_graph(vt, vt_cfg: VToonifyConfig, parsing, frames_u8, s_w, d_s,
-                dtype=torch.bfloat16, packed_out: bool = False):
-    """uint8 frames (B, H, W, 3) -> stylized uint8 (B, 4H, 4W, 3), or
-    (B, 2H, 2W, 12) phase-major with `packed_out`.
-
-    reference style_transfer.py:165-177: BiSeNet on the 2x bilinear-upsampled
-    frame (x2 gain), nearest x0.5 downsample of the logits, 1/16-weighted
-    concat, VToonify forward, clamp, quantize."""
+def stylized_image(vt, vt_cfg: VToonifyConfig, parsing, frames_u8, s_w, d_s,
+                   dtype=torch.bfloat16):
+    """frame_graph before its clamp and quantization: the (B, 3, 4H, 4W)
+    image out of `vtoonify_apply`, in `dtype`."""
     x = _normalize(frames_u8, dtype)
     h, w = x.shape[2:]
     x2 = resize_bilinear(x, (2 * h, 2 * w), align_corners=False)
     logits = bisenet_apply(parsing, 2.0 * x2)
     x_p = resize_nearest(logits, (h, w))
-    return _synthesize(vt, vt_cfg, x, x_p, s_w, d_s, dtype, packed_out)
+    return _stylize(vt, vt_cfg, x, x_p, s_w, d_s, dtype)
+
+
+def frame_graph(vt, vt_cfg: VToonifyConfig, parsing, frames_u8, s_w, d_s,
+                dtype=torch.bfloat16, packed_out: bool = False):
+    """uint8 frames (B, H, W, 3) -> stylized uint8 (B, 4H, 4W, 3), or
+    (B, 2H, 2W, 12) phase-major with `packed_out`. The frames may be row
+    slabs (`parallel.spatial.RowSharded`, NHWC rows on axis 1); so is the
+    output then.
+
+    reference style_transfer.py:165-177: BiSeNet on the 2x bilinear-upsampled
+    frame (x2 gain), nearest x0.5 downsample of the logits, 1/16-weighted
+    concat, VToonify forward, clamp, quantize."""
+    return _quantize(stylized_image(vt, vt_cfg, parsing, frames_u8, s_w, d_s, dtype),
+                     packed_out)
 
 
 def frame_graph_with_parsing(vt, vt_cfg: VToonifyConfig, frames_u8, x_p, s_w,
                              d_s, dtype=torch.bfloat16, packed_out: bool = False):
     """frame_graph with precomputed parsing maps x_p (B, H, W, 19)."""
     x = _normalize(frames_u8, dtype)
-    return _synthesize(vt, vt_cfg, x, x_p.permute(0, 3, 1, 2), s_w, d_s, dtype,
-                       packed_out)
+    return _quantize(_stylize(vt, vt_cfg, x, x_p.permute(0, 3, 1, 2), s_w, d_s, dtype),
+                     packed_out)
 
 
 class ToonifyPipeline:
@@ -118,6 +138,11 @@ class ToonifyPipeline:
     replica's frames are the numbers one device gives for those frames in
     one call (a one-frame share takes the unfolded style form, as a batch of
     one does).
+    A spatial mesh (`make_spatial_mesh`) splits each frame's rows over its
+    devices instead, for any batch: the modules stay on the first device
+    with a registered copy on each other one (`parallel.spatial.replicate`),
+    the graph runs on row slabs, exchanging halo rows and summing its global
+    means over them, and the output rows are gathered on the first device.
     """
 
     def __init__(self, vt, vt_cfg: VToonifyConfig, parsing, psp_params=None,
@@ -144,7 +169,11 @@ class ToonifyPipeline:
         self.parsing = copy.deepcopy(parsing).to(self.device, dtype)
         # (device, vt, parsing) per mesh device; the first is the pipeline's own
         self._replicas = [(self.device, self.vt, self.parsing)]
-        if mesh is not None:
+        self._spatial = mesh is not None and mesh.axis == "sp"
+        if self._spatial:
+            self._sp_copies = (spatial.replicate(self.vt, mesh.devices)
+                               + spatial.replicate(self.parsing, mesh.devices))
+        elif mesh is not None:
             from vtoonify_tpu_torch.parallel.mesh import shard_params
 
             rest = mesh.devices[1:]
@@ -238,7 +267,17 @@ class ToonifyPipeline:
         """graph(vt, parsing, frames, s_w, *rest) on each replica's share of
         `batches` = (frames, *rest) (host arrays or tensors, frame axis first): every
         chunk is uploaded and launched before any is waited on; the outputs
-        are concatenated in frame order on the first device."""
+        are concatenated in frame order on the first device. Over a spatial
+        mesh the graph runs once on every batch's row slabs and its output
+        rows are gathered on the first device."""
+        if self._spatial:
+            from vtoonify_tpu_torch.parallel.mesh import shard_array_spatial
+
+            slabs = [shard_array_spatial(b, self.mesh) for b in batches]
+            with torch.inference_mode():
+                sw = torch.as_tensor(s_w, dtype=torch.float32, device=self.device)
+                out = graph(self.vt, self.parsing, slabs[0], sw, *slabs[1:])
+            return spatial.gather(out, self.device)
         if len(self._replicas) == 1:
             rows = [slice(None)]
         else:
@@ -251,7 +290,8 @@ class ToonifyPipeline:
         with torch.inference_mode():
             for (dev, vt, parsing), c in zip(self._replicas, chunks):
                 sw = torch.as_tensor(s_w, dtype=torch.float32, device=dev)
-                outs.append(graph(vt, parsing, c[0], sw, *c[1:]))
+                with spatial.on_device(dev):  # each replica's kernels on its card
+                    outs.append(graph(vt, parsing, c[0], sw, *c[1:]))
         if len(outs) == 1:
             return outs[0]
         return torch.cat([o.to(self.device) for o in outs])
