@@ -14,6 +14,7 @@
     python3 chip_smoke.py --dist    # frame-parallel serving and
                                     # data-parallel training alone
     python3 chip_smoke.py --sp      # one frame split by rows alone
+    python3 chip_smoke.py --tp      # tensor parallelism alone
 
 Builds the port's five hand-written kernels from vtoonify_tpu_torch/csrc
 with nvcc (sm_90a, one nvcc per source, in parallel), checks each against its
@@ -45,7 +46,7 @@ with random weights from a seeded torch.Generator:
   a request pays on a thread new to the model, profiled;
 * smooth_parsing: the parsing-map smoother (RAFT at the raft-things widths,
   BiSeNet, float32) one window card vs CPU, all-pairs vs alt (TF32 off),
-  timed over 16-frame videos at 256 and 512 px with both in its default
+  timed over videos at 256 px (16 frames) and 512 px (2) with both in its default
   TF32 and held to the CPU's float32 on one frame, then its CLI, whose maps
   feed the style-transfer CLI, held byte for byte to
   process_batch_with_parsing fed the same maps;
@@ -99,7 +100,20 @@ with random weights from a seeded torch.Generator:
   against one device within one device's own bf16-vs-float32 gap on the
   same frame, B1-B4 launched on the 2-slab path, and host p50 per call at
   256 and 1024 px in (1024 and 4096 px out) beside one device, with the
-  halo copies and bytes per call and the peak memory per card.
+  halo copies and bytes per call and the peak memory per card;
+* tp: tensor parallelism (the wide weights split over a 'tp' row,
+  parallel/tensor.py): the flagship pipeline over make_mesh(devices=
+  ["cuda:0"] * k, tp=k) for k = 2 and 4 (and over every visible card when
+  there are 2 or more) at batch 1 and 16, float32 against one device within
+  TP_F32_*, bf16 within one device's own bf16-vs-float32 gap on the same
+  frames; B1-B4 launched on the tp-2 path; host p50 per call, the copies
+  and bytes per call and the peak memory per card; then the flagship D
+  stage-2 step (batch 2) over a tp-2 row on cuda:0 against no split, from
+  the same state and draws, float32 gradients within TP_GRAD_REL_L2 and
+  bf16 within the step's own bf16-vs-float32 gap, s/iter and peak memory
+  at tp 1 and 2; the --tiny D stage-1 and T stage-2 steps at tp 2 against
+  tp 1. B1, B2 and B4 run at the shard shapes in the kernel cases
+  (`tp2 shard ...`, `tp4 shard ...`).
 
 Each phase prints one JSON object on a line of its own with its wall
 seconds; the line before the last holds the per-kernel summary, and the last
@@ -209,6 +223,21 @@ DP_SERVE_MAX_LSB, DP_SERVE_MEAN_LSB = 4, 1e-3
 SP_F32_MAX_LSB, SP_F32_MEAN_LSB = 1, 0.01
 SP_SLABS_ON_CUDA0 = (2, 4)  # and a mesh of every visible card
 SP_TIMED_PX, SP_REPS = (256, 1024), 5
+# tensor parallelism against one device, float32 at 256 px in: each output
+# channel is the same sum as in the whole layer, but a conv of Cout / tp
+# channels may take another cuDNN algorithm or B1 tile order, which can move
+# a value across one quantization step. bf16 is held to one device's own
+# bf16-vs-float32 gap on the same frames. The D step over a tp-2 row: float32
+# gradients to TP_GRAD_REL_L2 relative L2 per tree, or to DIST_WITNESS_RATIO
+# x the same step's gap with its teacher synthesis a row at a time (other
+# conv shapes, so other cuDNN algorithms: the H100 read 3.8e-5 / 1.4e-5 for
+# tp 2, deterministic, and the per-row witness moves this step by as much,
+# as it moves the 2-rank step of DIST_GATES); bf16 to the step's own
+# bf16-vs-float32 gap
+TP_F32_MAX_LSB, TP_F32_MEAN_LSB = 1, 0.01
+TP_WIDTHS_ON_CUDA0 = (2, 4)  # and a row of every visible card
+TP_BATCHES, TP_REPS = (1, 16), 5
+TP_GRAD_REL_L2 = 1e-5
 ENGINE_FRAMES, ENGINE_TIMED_FRAMES, ENGINE_BATCH, ENGINE_PX = 40, 160, 16, 256
 
 # pipeline_options: batch-16 packed/unpacked at the 256 px serving crop, the
@@ -219,12 +248,13 @@ BUCKET_CROP, BUCKET, BUCKET_MARGIN = (248, 264), 64, 32
 # out) to the style arcane1-d, warmed once and timed over 8 requests
 PORTRAIT_PX, HTTP_STYLE, HTTP_TIMED = 1024, "arcane1-d", 8
 # smooth_parsing: the reference's window 5 and 20 RAFT iterations; one
-# window of 64 px frames card vs CPU, 16-frame videos timed at 256 and 512
-# px; the CLI over 8 frames of 256 px. Card vs CPU and alt vs all-pairs on
+# window of 64 px frames card vs CPU, videos timed at 256 px (16 frames) and
+# 512 px (2 frames: every frame fuses a whole window of 11, so the time per
+# frame does not depend on the count); the CLI over 8 frames of 256 px. Card vs CPU and alt vs all-pairs on
 # the smoothed maps: relative L2 within 1e-3 (float32 sums in another order
 # through 20 GRU steps, and a validity mask binarized at 0.9999 that a
 # rounding can flip at the border)
-SMOOTH_WINDOW, SMOOTH_ITERS, SMOOTH_FRAMES = 5, 20, 16
+SMOOTH_WINDOW, SMOOTH_ITERS, SMOOTH_FRAMES = 5, 20, {256: 16, 512: 2}
 SMOOTH_GATE_PX, SMOOTH_PX, CLI_PX, CLI_FRAMES = 64, (256, 512), 256, 8
 SMOOTH_REL_L2 = 1e-3
 # the timed 256 px maps in TF32 (the smoother's default) against the CPU's
@@ -422,13 +452,31 @@ class Case:
         self.summary, self.reps = summary, reps
 
 
-def kernel_cases(rng, dev):
+class Drawn:
+    """A float32 normal draw of `shape` times `scale` plus `shift`, made on
+    the card from its own seed each time a case asks for it (`.to(dev,
+    dtype)`): the cases' inputs are never all held at once, and drawing
+    their ~2e9 values on the host would take longer than the phase's
+    timing."""
+
+    def __init__(self, shape, scale, shift, seed):
+        self.shape, self.scale, self.shift, self.seed = shape, scale, shift, seed
+
+    def to(self, dev, dtype):
+        g = torch.Generator(device=dev).manual_seed(self.seed)
+        x = torch.randn(self.shape, generator=g, device=dev)
+        return (x * self.scale + self.shift).to(dtype)
+
+
+def kernel_cases(seed, dev):
     from vtoonify_tpu_torch.ops import kernels as K
     from vtoonify_tpu_torch.ops.upfirdn2d import make_kernel
     from vtoonify_tpu_torch.train import augment as A
 
+    seeds = iter(range(seed * 100_000, (seed + 1) * 100_000))
+
     def t(*shape, scale=1.0, shift=0.0):
-        return torch.from_numpy((rng.randn(*shape) * scale + shift).astype(np.float32))
+        return Drawn(shape, scale, shift, next(seeds))
 
     def nbytes(dt, *ts):
         es = torch.finfo(dt).bits // 8
@@ -494,10 +542,28 @@ def kernel_cases(rng, dev):
     # 2 slabs, each with one halo row a side
     conv_case("sp2 slab conv 514x1024 32->32", 1, (514, 1024), 32, 32, True, True)
     conv_case("sp2 slab upconv 258x512 64->4*32", 1, (258, 512), 64, 128, True, True)
+    # tensor parallelism: a shard of the 512- and 256-wide convs and up convs
+    # (Cout / tp output channels; the up conv's 4 phases per channel)
+    for k in (2, 4):
+        conv_case(f"tp{k} shard conv 64^2 512->{512 // k}", 1, 64, 512, 512 // k, True, True)
+        conv_case(f"tp{k} shard conv 64^2 512->{512 // k} folded b16", 16, 64, 512,
+                  512 // k, False, True)
+        conv_case(f"tp{k} shard conv 128^2 256->{256 // k}", 1, 128, 256, 256 // k,
+                  True, True)
+        conv_case(f"tp{k} shard teacher conv 64^2 512->{512 // k} raw b2", 2, 64, 512,
+                  512 // k, True, False)
+        conv_case(f"tp{k} shard upconv 32^2 512->4*{512 // k}", 1, 32, 512,
+                  4 * 512 // k, True, True)
+        conv_case(f"tp{k} shard upconv 64^2 512->4*{256 // k}", 1, 64, 512,
+                  4 * 256 // k, True, True)
 
     for shape, summary in [((1, 512, 32, 32), True), ((4, 512, 32, 32), False),
                            ((18, 512), True), ((2, 512, 64, 64), False),
                            ((1, 512, 16, 32), False),  # a slab of 2 (spatial)
+                           # shards of 2 and 4 ('tp'): the teacher's noisy
+                           # 512-wide convs, a wide linear
+                           ((2, 256, 64, 64), False), ((2, 128, 64, 64), False),
+                           ((18, 256), False),
                            *((s, False) for s in B2_TRAIN)]:
         x, bias = t(*shape), t(shape[1], scale=0.1)
 
@@ -554,7 +620,10 @@ def kernel_cases(rng, dev):
              sym6.flip(0)[:, None], (1, 1), (1, 2), (0, 0, -1, -1), reps=5)
 
     for b, shapes in ((1, UPCONV), (2, UPCONV), (4, UPCONV), (2, CROP_UPCONV),
-                      (1, [((258, 512), None, 32)])):  # a slab of 2 (spatial)
+                      (1, [((258, 512), None, 32)]),  # a slab of 2 (spatial)
+                      # shards of 2 and 4 ('tp') of the 32 and 64 px up convs
+                      (1, [(32, None, 256), (32, None, 128), (64, None, 128),
+                           (64, None, 64)])):
         for size, _, cout in shapes:
             h, w_px = (size, size) if isinstance(size, int) else size
             x = t(b, 4 * cout, h, w_px)
@@ -569,7 +638,8 @@ def kernel_cases(rng, dev):
 
     # B5 at the flagship augment: (2, 6, 4120, 4120) -> (2, 6, 2060, 2060)
     gen = torch.Generator().manual_seed(SEED)
-    img = torch.tanh(torch.randn((2, 6, AUG, AUG), generator=gen))
+    img = torch.tanh(torch.randn((2, 6, AUG, AUG), device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED)))
     eye = torch.eye(3).repeat(2, 1, 1)
     drawn = torch.linalg.inv(A.sample_affine(gen, 1.0, 2, 1024, 1024))
     for label, G_inv, summary in (("identity affine", eye, False),
@@ -629,7 +699,7 @@ def fir_library(a, k2d, up, down, pad):
                             padding=(max(py0, 0), max(px0, 0)), groups=c)
 
 
-def backward_cases(rng, dev):
+def backward_cases(seed, dev):
     """(kernel, label, kernel fn, plain fn, inputs, second-order plain fn
     or None): each Function's gradients on the card vs torch.autograd
     through the plain version, at one main-path shape, float32. B5's second
@@ -639,9 +709,10 @@ def backward_cases(rng, dev):
     from vtoonify_tpu_torch.ops.upfirdn2d import make_kernel
     from vtoonify_tpu_torch.train import augment as A
 
+    g = torch.Generator(device=dev).manual_seed(seed)
+
     def t(*shape, scale=1.0, shift=0.0):
-        return torch.from_numpy((rng.randn(*shape) * scale + shift).astype(
-            np.float32)).to(dev)
+        return torch.randn(shape, generator=g, device=dev) * scale + shift
 
     k1 = make_kernel([1, 3, 3, 1])
     k_blur = torch.outer(k1, k1)
@@ -653,6 +724,19 @@ def backward_cases(rng, dev):
          K.modconv3x3, K.modconv3x3_plain,
          (t(1, 512, 64, 64), t(3, 3, 512, 512, scale=1 / 68), t(1, 512, shift=1.0),
           t(1, 512, scale=0.1, shift=1.0), t(512, scale=0.1)), None),
+        ("modconv3x3", "tp2 shard conv 64^2 512->256 modulated + act",
+         K.modconv3x3, K.modconv3x3_plain,
+         (t(1, 512, 64, 64), t(3, 3, 512, 256, scale=1 / 68), t(1, 512, shift=1.0),
+          t(1, 256, scale=0.1, shift=1.0), t(256, scale=0.1)), None),
+        ("modconv3x3", "tp4 shard upconv 32^2 512->4*128 modulated + act",
+         K.modconv3x3, K.modconv3x3_plain,
+         (t(1, 512, 32, 32), t(3, 3, 512, 512, scale=1 / 68), t(1, 512, shift=1.0),
+          t(1, 512, scale=0.1, shift=1.0), t(512, scale=0.1)), None),
+        ("fused_leaky_relu", "tp2 shard (2,256,64,64)", K.fused_leaky_relu,
+         K.fused_leaky_relu_plain, (t(2, 256, 64, 64), t(256)), None),
+        ("depth_to_space2", "tp2 shard (1,1024,32,32) phase-minor",
+         lambda x: K.depth_to_space2(x, True),
+         lambda x: K.depth_to_space2_plain(x, True), (t(1, 1024, 32, 32),), None),
         ("fused_leaky_relu", "(2,512,64,64)", K.fused_leaky_relu,
          K.fused_leaky_relu_plain, (t(2, 512, 64, 64), t(512)), None),
         ("upfirdn2d", "D blur (2,128,256,256) pad 2",
@@ -679,7 +763,7 @@ def kernel_phase(dev, only=None):
                       "bound_ms": 0.0, "library_ms": None, "bytes": 0, "flops": 0}
                for name in names}
     records = []
-    for case in kernel_cases(np.random.RandomState(SEED), dev):
+    for case in kernel_cases(SEED, dev):
         if case.name not in summary:
             continue
         for dtype in ("float32", "bfloat16"):
@@ -728,7 +812,7 @@ def kernel_phase(dev, only=None):
     for name, sm in summary.items():
         sm["bound_by"] = bound_ms(sm["bytes"], sm["flops"], "bfloat16")[1]
 
-    for name, label, kern, plain, inputs, _ in backward_cases(np.random.RandomState(1), dev):
+    for name, label, kern, plain, inputs, _ in backward_cases(1, dev):
         if name not in summary:
             continue
         grads = []
@@ -746,7 +830,8 @@ def kernel_phase(dev, only=None):
                "dtype": "float32", "max_rel_err": max(errs), "tol": TOL_GRAD}
         emit(rec)
         check(max(errs) <= TOL_GRAD, f"{name} backward {label}: {max(errs)}")
-        summary[name]["backward_max_rel_err"] = max(errs)
+        summary[name]["backward_max_rel_err"] = max(
+            summary[name].get("backward_max_rel_err", 0.0), max(errs))
     (OUT_DIR / "kernel_records.json").write_text(json.dumps(records, indent=1))
     emit({"phase": "kernel_done", "seconds": time.perf_counter() - t0})
     return summary
@@ -1534,7 +1619,7 @@ def smooth_parsing_phase(smi, root):
     vs CPU and alt vs all-pairs on the card, RAFT's flows alt vs all-pairs
     at JAX's bounds. Then in the smoother's default precision (TF32 for
     cuDNN's convs and the matmuls, as its CLI runs): the smoother timed over
-    a 16-frame video at 256 and 512 px with both corr impls (ms per smoothed
+    a video at 256 px (16 frames) and 512 px (2) with both corr impls (ms per smoothed
     frame, peak memory, B3's launches), the 256 px maps held to the CPU's
     float32 map of one frame of the same video, one run profiled, and its
     CLI on a cv2 mp4, whose maps feed the style-transfer CLI on the serving
@@ -1648,7 +1733,8 @@ def _smooth_timed(smi, raft, parsing, root, rec):
 
     timed, launches = [], collections.Counter()
     for px in SMOOTH_PX:
-        clip = synthetic_frames(SEED + 10, SMOOTH_FRAMES, px)
+        frames = SMOOTH_FRAMES[px]
+        clip = synthetic_frames(SEED + 10, frames, px)
         maps = {}
         for impl in ("allpairs", "alt"):
             torch.cuda.synchronize()
@@ -1660,13 +1746,13 @@ def _smooth_timed(smi, raft, parsing, root, rec):
             counts = K.launch_counts()
             launches.update(counts)
             m = maps[impl]
-            check(m.shape == (SMOOTH_FRAMES, px, px, 19) and m.dtype == np.float32
+            check(m.shape == (frames, px, px, 19) and m.dtype == np.float32
                   and np.isfinite(m).all(), f"smoothed maps {m.shape} {m.dtype} at {px} px")
             check(counts["upfirdn2d"] > 0, "smoothing did not launch B3")
-            timed.append({"px": px, "corr": impl, "frames": SMOOTH_FRAMES,
-                          "ms_per_frame": wall_ms / SMOOTH_FRAMES,
+            timed.append({"px": px, "corr": impl, "frames": frames,
+                          "ms_per_frame": wall_ms / frames,
                           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-                          "b3_launches_per_frame": counts["upfirdn2d"] / SMOOTH_FRAMES,
+                          "b3_launches_per_frame": counts["upfirdn2d"] / frames,
                           "launches": counts})
         a, b = maps["allpairs"], maps["alt"]
         timed[-1]["maps_alt_vs_allpairs_rel_l2"] = float(np.linalg.norm(b - a)
@@ -2915,15 +3001,15 @@ def second_order_gates(dev):
     from vtoonify_tpu_torch.ops import kernels as K
 
     rng = np.random.RandomState(SEED + 30)
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
     rec = {}
-    for name, label, kern, plain, inputs, plain2 in backward_cases(
-            np.random.RandomState(1), dev):
+    for name, label, kern, plain, inputs, plain2 in backward_cases(1, dev):
         plain = plain2 or plain
         with torch.no_grad():
             out_shape = plain(*inputs).shape
 
         def t(shape):
-            return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+            return torch.randn(shape, generator=g, device=dev)
 
         v1, v2 = t(out_shape), [t(x.shape) for x in inputs]
         K.reset_launch_counts()
@@ -3324,9 +3410,14 @@ def dist_serving(smi):
     return rec, launches
 
 
+_DIST_BUILT = {}  # _dist_setup's modules and inputs, built once a process
+
+
 def _dist_setup(compute_dtype="bfloat16"):
     """train_phase's flagship stage-2 configuration, global batch
-    DIST_BATCH: CPU modules from one seed, the same in every process."""
+    DIST_BATCH: CPU modules from one seed, the same in every process and
+    for either dtype (train_setup does not read tcfg), built once and
+    handed out as copies."""
     from vtoonify_tpu_torch.models.vtoonify import CondDiscriminatorConfig, VToonifyConfig
     from vtoonify_tpu_torch.train.steps import TrainDConfig
 
@@ -3334,8 +3425,10 @@ def _dist_setup(compute_dtype="bfloat16"):
     dcfg = CondDiscriminatorConfig(size=256, channel_multiplier=2, use_condition=True,
                                    style_num=4)
     tcfg = TrainDConfig(compute_dtype=compute_dtype)
-    pcfg, mods, inputs = train_setup(cfg, dcfg, tcfg, DIST_BATCH,
-                                     torch.Generator().manual_seed(SEED + 41))
+    if not _DIST_BUILT:
+        _DIST_BUILT["setup"] = train_setup(cfg, dcfg, tcfg, DIST_BATCH,
+                                           torch.Generator().manual_seed(SEED + 41))
+    pcfg, mods, inputs = copy.deepcopy(_DIST_BUILT["setup"])
     return (cfg, dcfg, tcfg, pcfg), mods, inputs
 
 
@@ -3893,6 +3986,310 @@ def spatial_phase(smi):
     return launches
 
 
+def _tp_result(state, metrics):
+    """A D step's readings by parameter name, split weights whole: the
+    metrics, the new parameters and the gradients (Adam's first moment over
+    1 - beta1) of each optimizer's module, and the EMA."""
+    from vtoonify_tpu_torch.parallel import tensor as TPS
+    from vtoonify_tpu_torch.train.steps import ADAM_BETA1
+
+    out = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "ema": {k: v.float().cpu().clone() for k, v in state.ema.state_dict().items()}}
+    for key, opt, mod in (("trainable", state.g_opt, state.trainable),
+                          ("d", state.d_opt, state.d)):
+        sd = TPS.optimizer_state_dict(opt, mod)
+        out[f"{key}_grads"] = {n: (st["exp_avg"] / (1 - ADAM_BETA1)).cpu()
+                               for n, st in sd["state"].items()}
+        out[f"{key}_new"] = {k: v.float().cpu().clone() for k, v in mod.state_dict().items()}
+    return out
+
+
+def _tree_rel_l2(a: dict, b: dict) -> float:
+    check(sorted(a) == sorted(b), "tensor-parallel results of other parameters")
+    return _grads_rel_l2(a, b)
+
+
+def _tp_compare(got, ref):
+    """{reading: relative L2 of got against ref}: metrics, EMA, and each
+    tree's gradients and new parameters."""
+    keys = sorted(ref["metrics"])
+    out = {"metrics": _rel_l2(torch.tensor([got["metrics"][k] for k in keys], dtype=torch.float64),
+                              torch.tensor([ref["metrics"][k] for k in keys], dtype=torch.float64)),
+           "ema": _tree_rel_l2(got["ema"], ref["ema"])}
+    for tree in ("trainable", "d"):
+        for what in ("grads", "new"):
+            out[f"{tree}_{what}"] = _tree_rel_l2(got[f"{tree}_{what}"], ref[f"{tree}_{what}"])
+    return out
+
+
+def _tp_d_step(setup, mods_cpu, inputs, k, timed=0):
+    """The flagship D stage-2 step from mods_cpu's state and the draws of
+    seed SEED + 61, the student and D split over a row of k on cuda:0
+    (k = 1: no split), with cuDNN deterministic; then, when `timed`, one
+    warm-up step and `timed` steps, timed (cuDNN's default). Returns (the
+    first step's readings, peak GiB on cuda:0, s/iter of the timed
+    steps)."""
+    from vtoonify_tpu_torch.parallel.tensor import shard_module
+    from vtoonify_tpu_torch.train import steps as S
+
+    cfg, dcfg, tcfg, pcfg = setup
+    mods = copy.deepcopy(mods_cpu)
+    if k > 1:
+        for name in ("vt", "d"):
+            shard_module(mods[name], ["cuda:0"] * k)
+    state = S.init_train_d_state(mods["vt"], mods["d"], DIST_BATCH, cfg, tcfg)
+    _, frozen = S.split_trainable(mods["vt"])
+    gen = torch.Generator().manual_seed(SEED + 61)
+
+    def step():
+        draws = S.sample_train_d_draws(gen, DIST_BATCH, cfg, tcfg,
+                                       inputs["directions"].shape[0], device="cuda")
+        return S.train_d_step(state, frozen, mods["parsing"], mods["psp"], pcfg, None,
+                              mods["lpips"], cfg, dcfg, tcfg, inputs["directions"],
+                              inputs["style"], inputs["style_ind"], 0.5,
+                              inputs["weights"], 0.3, 0.5, False, draws=draws)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(0)
+    torch.backends.cudnn.deterministic = True
+    try:
+        first = _tp_result(state, step())
+    finally:
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(0) / 2**30
+    times = []
+    for i in range(timed + 1 if timed else 0):
+        t1 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t1)
+    del state, frozen, mods
+    torch.cuda.empty_cache()
+    return first, peak, (float(np.median(times)) if times else None)
+
+
+def _tp_tiny_steps():
+    """The --tiny D stage-1 and T stage-2 steps (float32) at tp 2 on
+    cuda:0 against tp 1, from the same modules and draws: {reading: rel
+    L2}."""
+    from vtoonify_tpu_torch.models.generator import init_generator
+    from vtoonify_tpu_torch.models.vtoonify import CondDiscriminatorConfig, VToonifyConfig
+    from vtoonify_tpu_torch.parallel.tensor import shard_module
+    from vtoonify_tpu_torch.train import steps as S
+
+    out = {}
+    tcfg = S.TrainDConfig(crop_size=96, lpips_size=64, aug_max_pad=40)
+    for which in ("pretrain_d", "train_t"):
+        g = torch.Generator().manual_seed(SEED + 62)
+        backbone = "dualstylegan" if which == "pretrain_d" else "toonify"
+        cfg = VToonifyConfig(backbone=backbone, **TINY_VT)
+        dcfg = CondDiscriminatorConfig(size=64, channel_multiplier=1)
+        pcfg, mods_cpu, inputs = train_setup(cfg, dcfg, tcfg, 2, g)
+        mods_cpu["base"] = init_generator(cfg.generator, g)
+        draws = (S.sample_train_t_draws(g, 2, cfg, tcfg, 4) if which == "train_t"
+                 else S.sample_pretrain_draws(g, 2, cfg, 4)).to("cuda")
+        res = {}
+        for k in (1, 2):
+            m = copy.deepcopy(mods_cpu)
+            row = ["cuda:0"] * k
+            if which == "train_t":
+                for name in ("vt", "d", "base"):
+                    shard_module(m[name], row)
+                state = S.init_train_t_state(m["vt"], m["d"], tcfg)
+                _, frozen = S.split_trainable(m["vt"])
+                metrics = S.train_t_step(state, frozen, m["base"], m["parsing"], m["psp"],
+                                         pcfg, None, m["lpips"], cfg, dcfg, tcfg,
+                                         inputs["directions"], 2, 0.3, draws=draws)
+                new = {**state.trainable.state_dict(), **{
+                    f"d.{n}": v for n, v in state.d.state_dict().items()}}
+            else:
+                state = S.init_pretrain_state(m["vt"])
+                _, frozen = S.split_trainable(m["vt"], pretrain=True)
+                for f in frozen.values():
+                    shard_module(f, row)
+                metrics = S.pretrain_step(state, frozen, m["parsing"], cfg,
+                                          inputs["directions"], inputs["style"], 0.6,
+                                          draws=draws)
+                new = state.trainable.state_dict()
+            res[k] = ({n: v.float().cpu() for n, v in new.items()},
+                      {n: v.float().cpu() for n, v in state.ema.state_dict().items()},
+                      torch.tensor([float(metrics[n]) for n in sorted(metrics)],
+                                   dtype=torch.float64))
+        for i, what in enumerate(("new", "ema")):
+            out[f"{which}_{what}_rel_l2"] = _tree_rel_l2(res[2][i], res[1][i])
+        out[f"{which}_metrics_rel_l2"] = _rel_l2(res[2][2], res[1][2])
+    return out
+
+
+def tp_phase(smi):
+    """Tensor parallelism on the card: the flagship pipeline over tp rows
+    (serving gates, launches, copies, p50 per call, peak memory), the
+    flagship D stage-2 step over a tp-2 row against no split (float32 and
+    bf16), and the --tiny D stage-1 and T stage-2 steps at tp 2 against tp 1.
+    Returns the launches of one tp-2 batch-1 bf16 serving call."""
+    from vtoonify_tpu_torch.ops import kernels as K
+    from vtoonify_tpu_torch.parallel import tensor as TPS
+    from vtoonify_tpu_torch.parallel.mesh import make_mesh
+    from vtoonify_tpu_torch.pipeline.toonify import ToonifyPipeline
+
+    t0 = time.perf_counter()
+    cfg, vt, parsing = build_modules()
+    rng = np.random.RandomState(SEED + 60)
+    s_w = rng.randn(1, cfg.n_latent, 512).astype(np.float32)
+    frames = rng.randint(0, 256, (max(TP_BATCHES), 256, 256, 3)).astype(np.uint8)
+    n_cards = torch.cuda.device_count()
+    meshes = {"one_device": None,
+              **{f"tp{k}_cuda0": make_mesh(devices=["cuda:0"] * k, tp=k)
+                 for k in TP_WIDTHS_ON_CUDA0}}
+    if n_cards >= 2:
+        meshes["tp_all_cards"] = make_mesh(tp=n_cards)
+    rec = {"config": "VToonifyConfig() + BiSeNet, d_s 0.5, 256 -> 1024 px",
+           "cards_visible": n_cards, "nvidia_smi": smi}
+    bad, outs, pipes = [], {}, {}
+    for dtype in ("float32", "bfloat16"):
+        for name, mesh in meshes.items():
+            pipe = ToonifyPipeline(vt, cfg, parsing, dtype=getattr(torch, dtype), mesh=mesh)
+            if mesh is not None:
+                check(TPS.is_sharded(pipe.vt), f"tp {name}: the pipeline's VToonify is not split")
+            for b in TP_BATCHES:
+                out = pipe.process_batch(frames[:b], s_w, 0.5)
+                check(tuple(out.shape) == (b, 1024, 1024, 3) and out.dtype == torch.uint8
+                      and out.device == torch.device("cuda", 0),
+                      f"tp {name} {dtype} b{b}: output {tuple(out.shape)} {out.dtype}")
+                outs[dtype, name, b] = out
+            if dtype == "bfloat16":
+                pipes[name] = pipe
+            del pipe
+    del vt, parsing
+    rec["build_and_first_calls_seconds"] = time.perf_counter() - t0
+    for b in TP_BATCHES:
+        gap = _lsb_diff(outs["bfloat16", "one_device", b], outs["float32", "one_device", b])
+        rec[f"one_device_b{b}_bf16_vs_f32_max_mean_lsb"] = gap
+        rec[f"out_std_lsb_b{b}"] = outs["float32", "one_device", b].float().std().item()
+        for name in list(meshes)[1:]:
+            f32 = _lsb_diff(outs["float32", name, b], outs["float32", "one_device", b])
+            bf16 = _lsb_diff(outs["bfloat16", name, b], outs["bfloat16", "one_device", b])
+            rec[f"{name}_b{b}_f32_vs_one_device_max_mean_lsb"] = f32
+            rec[f"{name}_b{b}_bf16_vs_one_device_max_mean_lsb"] = bf16
+            if f32[0] > TP_F32_MAX_LSB or f32[1] > TP_F32_MEAN_LSB:
+                bad.append(f"{name} b{b} float32 {f32}")
+            if bf16[0] > gap[0] or bf16[1] > gap[1]:
+                bad.append(f"{name} b{b} bf16 {bf16} above one device's bf16-vs-f32 gap {gap}")
+    del outs
+
+    # the launches and copies of one tp-2 batch-1 bf16 call, counted from 0
+    tp2 = pipes[f"tp{TP_WIDTHS_ON_CUDA0[0]}_cuda0"]
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    TPS.reset_stats()
+    tp2.process_batch(frames[:1], s_w, 0.5)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    rec["launches_per_call_tp2_b1"] = launches
+    rec["copies_per_call_tp2_b1"] = TPS.stats()
+    for name in ("modconv3x3", "fused_leaky_relu", "upfirdn2d", "depth_to_space2"):
+        if not launches[name]:
+            bad.append(f"kernel {name} was not launched by the tp path")
+    K.reset_launch_counts()
+    pipes["one_device"].process_batch(frames[:1], s_w, 0.5)
+    torch.cuda.synchronize()
+    rec["launches_per_call_one_device_b1"] = K.launch_counts()
+
+    # host p50 per call ending in a synchronize, bf16, in turns
+    for b in TP_BATCHES:
+        for rnd in range(2):
+            for name, pipe in pipes.items():
+                call = lambda: pipe.process_batch(frames[:b], s_w, 0.5)  # noqa: E731
+                call()
+                torch.cuda.synchronize()
+                for d in range(n_cards):
+                    torch.cuda.reset_peak_memory_stats(d)
+                TPS.reset_stats()
+                times = []
+                for _ in range(TP_REPS):
+                    t1 = time.perf_counter()
+                    call()
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t1) * 1e3)
+                r = rec.setdefault(f"{name}_b{b}", {"p50_ms_per_call": []})
+                r["p50_ms_per_call"].append(float(np.median(times)))
+                r["copies_per_call"] = {k: v / TP_REPS for k, v in TPS.stats().items()}
+                r["peak_gib_per_card"] = [torch.cuda.max_memory_allocated(d) / 2**30
+                                          for d in range(n_cards)]
+    for name, pipe in pipes.items():
+        rec[f"{name}_weights_gib_per_card"] = [
+            sum(t.numel() * t.element_size() for t in pipe.vt.parameters()
+                if t.device == torch.device("cuda", d)) / 2**30 for d in range(n_cards)]
+    del pipes, tp2
+    torch.cuda.empty_cache()
+    rec["serving_seconds"] = time.perf_counter() - t0
+
+    # the flagship D stage-2 step over a tp-2 row on cuda:0 against no split
+    t1 = time.perf_counter()
+    readings = {}
+    for compute_dtype in (None, "bfloat16"):
+        setup, mods_cpu, inputs = _dist_setup(compute_dtype)
+        tag = "f32" if compute_dtype is None else "bf16"
+        for k in (1, 2):
+            readings[tag, k], peak, s_iter = _tp_d_step(
+                setup, mods_cpu, inputs, k, timed=3 if compute_dtype else 0)
+            rec[f"d_step_{tag}_tp{k}_peak_gib_cuda0"] = peak
+            if s_iter is not None:
+                rec[f"d_step_{tag}_tp{k}_s_per_iter"] = s_iter
+        if compute_dtype is None:
+            # witnesses: the same step again (deterministic: equal), and
+            # with its teacher synthesis a row at a time (the same function,
+            # other conv shapes, so other cuDNN algorithms and float32 sums,
+            # as a split layer has: _dist_witnesses' synthesis_per_row)
+            again = _tp_d_step(setup, mods_cpu, inputs, 1)[0]
+            rec["d_step_f32_tp1_again_vs_tp1_rel_l2"] = _tp_compare(again, readings[tag, 1])
+            with synthesis_row_by_row():
+                readings["witness"] = _tp_d_step(setup, mods_cpu, inputs, 1)[0]
+            rec["d_step_f32_synthesis_per_row_vs_tp1_rel_l2"] = _tp_compare(
+                readings["witness"], readings[tag, 1])
+            del again
+        del mods_cpu
+    f32 = _tp_compare(readings["f32", 2], readings["f32", 1])
+    for which, key in (("tp2", ("f32", 2)), ("synthesis_per_row", "witness")):
+        for tree in ("trainable", "d"):  # where the float32 gradient gap sits
+            got, ref = readings[key][f"{tree}_grads"], readings["f32", 1][f"{tree}_grads"]
+            gaps = {n: ((got[n] - ref[n]).norm().item(), ref[n].norm().item()) for n in ref}
+            rec[f"d_step_f32_{which}_{tree}_largest_grad_gaps"] = sorted(
+                ([n, d, r] for n, (d, r) in gaps.items()), key=lambda v: -v[1])[:5]
+    bf16 = _tp_compare(readings["bf16", 2], readings["bf16", 1])
+    own = _tp_compare(readings["bf16", 1], readings["f32", 1])
+    rec["d_step_f32_tp2_vs_tp1_rel_l2"] = f32
+    rec["d_step_bf16_tp2_vs_tp1_rel_l2"] = bf16
+    rec["d_step_bf16_vs_f32_tp1_rel_l2"] = own
+    witness = rec["d_step_f32_synthesis_per_row_vs_tp1_rel_l2"]
+    if any(rec["d_step_f32_tp1_again_vs_tp1_rel_l2"].values()):
+        bad.append("the deterministic D step differs from itself")
+    for tree in ("trainable", "d"):
+        bound = max(TP_GRAD_REL_L2, DIST_WITNESS_RATIO * witness[f"{tree}_grads"])
+        rec[f"d_step_f32_{tree}_grads_bound"] = bound
+        if not f32[f"{tree}_grads"] <= bound:
+            bad.append(f"D step float32 {tree} gradients {f32[tree + '_grads']} > {bound}")
+        if not bf16[f"{tree}_grads"] <= own[f"{tree}_grads"]:
+            bad.append(f"D step bf16 {tree} gradients {bf16[tree + '_grads']} above "
+                       f"the step's bf16-vs-f32 gap {own[tree + '_grads']}")
+    # the new parameters are recorded, not gated: Adam's first update moves
+    # an element whose gradient is at the rounding noise by +-lr either way
+    for what in ("metrics", "ema"):
+        if not f32[what] <= DIST_REL_L2:
+            bad.append(f"D step float32 {what} {f32[what]}")
+    del readings
+    rec["d_step_seconds"] = time.perf_counter() - t1
+    tiny = _tp_tiny_steps()
+    rec["tiny_tp2_vs_tp1_rel_l2"] = tiny
+    bad += [f"--tiny {k} {v}" for k, v in tiny.items() if not v <= DIST_REL_L2]
+    rec["seconds"] = time.perf_counter() - t0
+    emit({"phase": "tp", **rec, "failures": bad})
+    check(not bad, f"tp: {bad}")
+    check(rec["out_std_lsb_b1"] > 10, "tp: the one-device image is flat")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -3974,8 +4371,12 @@ def main():
         # one frame split by rows alone; no result line
         spatial_phase(smi)
         return
+    if sys.argv[1:] == ["--tp"]:
+        # tensor parallelism alone; no result line
+        tp_phase(smi)
+        return
     check(len(sys.argv) == 1, "usage: chip_smoke.py [--kernels NAME[,NAME...] | --paths "
-          "| --apps | --raft | --reg | --dist | --sp]")
+          "| --apps | --raft | --reg | --dist | --sp | --tp]")
     summary = kernel_phase(dev)
     launches_serve = serve_phases(smi)
     launches_style_engine = style_engine_phase(smi)
@@ -3998,6 +4399,7 @@ def main():
     launches_reg = regularise_phase(smi)
     launches_dist = distributed_phase(smi)
     launches_spatial = spatial_phase(smi)
+    launches_tp = tp_phase(smi)
     paths = {"serve": launches_serve, "style_engine": launches_style_engine,
              "pipeline_options": launches_options, "serve_http": launches_http,
              "smooth_parsing": launches_smooth, "release_gate": launches_gate,
@@ -4005,7 +4407,8 @@ def main():
              "pretrain_t_step": launches_t["pretrain_t"],
              "train_t_step": launches_t["train_t"], "train_cli": launches_cli,
              "raft_train_step": launches_raft, "regularise": launches_reg,
-             "distributed": launches_dist, "spatial": launches_spatial}
+             "distributed": launches_dist, "spatial": launches_spatial,
+             "tp": launches_tp}
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [

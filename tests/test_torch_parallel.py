@@ -329,8 +329,8 @@ def test_batch_statistics_in_losses_match_jax(jobs):
 
 def test_mesh_helpers_match_jax():
     """make_mesh's and make_spatial_mesh's shapes as JAX's; the batch split
-    and its refusal; the rows round-trip through shard_array_spatial; tensor
-    parallelism is refused (the next slice)."""
+    and its refusal; the rows round-trip through shard_array_spatial; a
+    (dp, tp) mesh is built, and a count tp does not divide refused."""
     mesh = M.make_mesh(devices=["cpu", "cpu"])
     assert mesh.shape == dict(JM.make_mesh(2).shape)
     assert M.replicated(mesh) == (torch.device("cpu"),) * 2
@@ -350,8 +350,11 @@ def test_mesh_helpers_match_jax():
         assert [p.shape[1] for p in slabs.parts] == [s.stop - s.start
                                                      for s in M.shard_spatial(sp, 13)]
         np.testing.assert_array_equal(S.gather(slabs).numpy(), x)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        M.make_mesh(devices=["cpu"] * 2, tp=2)
+    tp = M.make_mesh(devices=["cpu"] * 4, tp=2)  # a 2-D mesh: 2 rows of 2
+    assert tp.shape == dict(JM.make_mesh(4, tp=2).shape) == {"dp": 2, "tp": 2}
+    assert [len(r) for r in tp.rows] == [2, 2]
+    with pytest.raises(ValueError, match="4 devices not divisible by tp=3"):
+        M.make_mesh(devices=["cpu"] * 4, tp=3)
     replicas = M.shard_params(torch.nn.Linear(2, 2), mesh)
     assert len(replicas) == 2 and replicas[0] is not replicas[1]
 

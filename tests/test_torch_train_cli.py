@@ -93,6 +93,18 @@ def _stages(main, common, name, capsys, resume_stage2=True):
     return recs
 
 
+def _t_common(files, tmp_path):
+    zoo = files
+    finetune = str(tmp_path / "finetune.pt")
+    gen = zoo["made"]["toonify"].generator
+    torch.save({"g_ema": {k: torch.from_numpy(v) for k, v in E.export_generator(
+        gen, V.VToonifyConfig(backbone="toonify", **TINY).generator).items()}}, finetune)
+    return ["--stylegan_path", zoo["stylegan"], "--finetunegan_path", finetune,
+            "--faceparsing_path", zoo["faceparsing"], "--style_encoder_path",
+            zoo["psp"], "--direction_path", zoo["directions"],
+            "--weight", *["0.75"] * 7, *["1"] * 11]
+
+
 def test_train_d_cli_both_stages(files, tmp_path, monkeypatch, capsys):
     zoo = files
     monkeypatch.chdir(tmp_path)
@@ -116,15 +128,8 @@ def test_train_d_cli_both_stages(files, tmp_path, monkeypatch, capsys):
 
 def test_train_t_cli_both_stages(files, tmp_path, monkeypatch, capsys):
     zoo = files
-    finetune = str(tmp_path / "finetune.pt")
-    gen = zoo["made"]["toonify"].generator
-    torch.save({"g_ema": {k: torch.from_numpy(v) for k, v in E.export_generator(
-        gen, V.VToonifyConfig(backbone="toonify", **TINY).generator).items()}}, finetune)
+    common = _t_common(zoo, tmp_path)
     monkeypatch.chdir(tmp_path)
-    common = ["--stylegan_path", zoo["stylegan"], "--finetunegan_path", finetune,
-              "--faceparsing_path", zoo["faceparsing"], "--style_encoder_path",
-              zoo["psp"], "--direction_path", zoo["directions"],
-              "--weight", *["0.75"] * 7, *["1"] * 11]
     # stage 2 once: its resume is the loop and state file D's test resumes
     recs = _stages(train_t.main, common, "t", capsys, resume_stage2=False)
     assert set(recs[-1]) >= {"g", "gr", "gf", "tp", "d"} and "msk" not in recs[-1]
@@ -136,24 +141,75 @@ def test_train_t_cli_both_stages(files, tmp_path, monkeypatch, capsys):
     shutil.rmtree("checkpoint")
 
 
+def _state_rel_l2(a, b):
+    """The largest relative L2 gap over a saved train state's module state
+    dicts and optimizer moments (the same keys and names asserted)."""
+    worst = 0.0
+    for f in ("trainable", "ema", "d"):
+        if f in b:
+            assert set(a[f]) == set(b[f])
+            num = sum(((a[f][k] - b[f][k]) ** 2).sum() for k in b[f])
+            worst = max(worst, (num / sum((b[f][k] ** 2).sum() for k in b[f])).sqrt().item())
+    for f in ("g_opt", "d_opt"):
+        if f in b:
+            assert sorted(a[f]["names"]) == sorted(b[f]["names"])
+            for n, st in b[f]["state"].items():
+                for k in ("exp_avg", "exp_avg_sq"):
+                    gap = (a[f]["state"][n][k] - st[k]).norm() / max(st[k].norm(), 1e-30)
+                    worst = max(worst, gap.item())
+    return worst
+
+
+@pytest.mark.parametrize("cli", ["train_d", "train_t"])
+def test_trainer_cli_tp2_matches_tp1(cli, files, tmp_path, monkeypatch, capsys):
+    """`--tiny --cpu --tp 2` (the wide weights split over the CPU named
+    twice) against `--tp 1`: stage 1 for one iteration at batch 2, then
+    stage 2 for one at batch 1 from the same stage-1 encoder; each saved
+    train state (split weights saved whole, the optimizers by name) within
+    1e-5 relative L2 of the tp-1 run's, as the 2-rank CLI runs are held
+    (float32: a split conv may round its sums in another order)."""
+    zoo = files
+    main = {"train_d": train_d.main, "train_t": train_t.main}[cli]
+    common = (["--stylegan_path", zoo["generator"], "--faceparsing_path",
+               zoo["faceparsing"], "--style_encoder_path", zoo["psp"],
+               "--exstyle_path", zoo["bank"], "--direction_path", zoo["directions"],
+               "--style_id", "1"] if cli == "train_d" else _t_common(files, tmp_path))
+    monkeypatch.chdir(tmp_path)
+    base = [*common, "--cpu", "--tiny", "--allow_random_lpips", "--log_every", "10"]
+    for tp in ("1", "2"):
+        _run(main, [*base, "--name", f"tp{tp}", "--tp", tp, "--pretrain", "--iter", "1",
+                    "--batch", "2"], capsys)
+        _run(main, [*base, "--name", f"tp{tp}", "--tp", tp, "--iter", "1", "--batch", "1",
+                    "--encoder_path", "checkpoint/tp1/pretrain.ckpt"], capsys)
+    for name in ("pretrain_state.ckpt", "train_state.ckpt"):
+        a, b = (torch.load(f"checkpoint/tp{tp}/{name}", weights_only=True) for tp in "21")
+        assert a["kind"] == b["kind"] and a["step"] == b["step"] == 1
+        assert _state_rel_l2(a, b) <= 1e-5, name
+    shutil.rmtree("checkpoint")
+
+
 @pytest.mark.parametrize("cli", ["train_d", "train_t"])
 @pytest.mark.parametrize("argv,raises,match", [
-    # (the first two ids kept from when both were refused as not ported)
-    pytest.param(["--tp", "2", "--cpu"], SystemExit, "north star",
+    # (the first two ids kept from when both were refused as not ported;
+    # the first is now the refusal of --tp 2 with one card visible)
+    pytest.param(["--tp", "2"], SystemExit, "needs cards cuda:0-1 .*1 visible",
                  id="argv0-SystemExit-queue A item 10"),
     pytest.param(["--multihost", "--cpu"], ValueError, "coordinator",
                  id="argv1-SystemExit-not ported yet"),
     ([], RuntimeError, "no CUDA device"),
 ])
 def test_trainer_refusals(cli, argv, raises, match, monkeypatch, tmp_path):
-    """Tensor parallelism is refused; --multihost with no coordinator and no
-    launcher raises before any process group starts; without --cpu and
-    without a card the trainers raise instead of running on the CPU."""
+    """--tp 2 with one card visible is refused, naming the count;
+    --multihost with no coordinator and no launcher raises before any
+    process group starts; without --cpu and without a card the trainers
+    raise instead of running on the CPU."""
     for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK",
               "VTOONIFY_COORDINATOR", "VTOONIFY_NUM_PROCESSES", "VTOONIFY_PROCESS_ID"):
         monkeypatch.delenv(k, raising=False)
     monkeypatch.chdir(tmp_path)
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    one_card = "--tp" in argv  # a card is visible, one short of the row
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: one_card)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: int(one_card))
     main = {"train_d": train_d.main, "train_t": train_t.main}[cli]
     with pytest.raises(raises, match=match):
         main(argv)

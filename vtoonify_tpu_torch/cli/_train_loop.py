@@ -8,7 +8,13 @@ Data parallelism: one process per card, started by `torchrun
 --nproc_per_node=N` (detected from its environment) or by hand with
 `--multihost --coordinator HOST:PORT --num_processes N --process_id R`
 (`parallel/multihost.py`). `--batch` is the global batch; each rank trains
-on its share and only rank 0 writes checkpoints, logs and sample grids."""
+on its share and only rank 0 writes checkpoints, logs and sample grids.
+
+Tensor parallelism (`--tp k`): each rank holds the wide weights of the trees
+the JAX trainers split (`tp_row`, `parallel.tensor.shard_module`) over its
+own row of k cards, cuda:LOCAL_RANK * k to + k - 1 (with --cpu, the CPU k
+times); across ranks the job stays data-parallel. A rank whose row is not
+all visible is refused."""
 
 from __future__ import annotations
 
@@ -70,8 +76,8 @@ def add_common_args(p, ref: str):
                    help="exact resume from the last full train state "
                         "(params+EMA+optimizers+step)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel width (1 only: GSPMD tensor "
-                        "parallelism is not part of the port)")
+                   help="tensor-parallel width: the wide weights split over "
+                        "this many cards a rank")
     p.add_argument("--multihost", action="store_true",
                    help="join a job of one process per card "
                         "(parallel/multihost.py; torchrun's environment is "
@@ -115,26 +121,26 @@ def add_common_args(p, ref: str):
 
 
 def start(args) -> torch.device:
-    """Print the options, refuse what is not ported, join the job's process
-    group (--multihost, or a launcher's environment), check that the ranks
-    split --batch evenly, set the float32 precision and NaN debugging;
-    returns the run's device."""
+    """Print the options, join the job's process group (--multihost, or a
+    launcher's environment), check that the rank's --tp cards are visible
+    and that the ranks split --batch evenly, set the float32 precision and
+    NaN debugging; returns the run's device (the first of the rank's
+    row)."""
     if args.encoder_path is None:
         args.encoder_path = os.path.join("./checkpoint/", args.name,
                                          "pretrain.ckpt")
-    if args.tp > 1:
-        raise SystemExit("error: --tp > 1 (GSPMD tensor parallelism) is a TPU "
-                         "layout the north star leaves out of vtoonify_tpu_torch "
-                         "(ROADMAP.md); the trainers are data-parallel: start "
-                         "one process per card")
+    if args.tp < 1:
+        raise SystemExit(f"error: --tp {args.tp} is not a width")
     want = "cpu" if args.cpu else None
     if args.multihost or multihost.launched():
         device = multihost.initialize(args.coordinator, args.num_processes,
-                                      args.process_id, args.local_rank, want)
+                                      args.process_id, args.local_rank, want,
+                                      tp=args.tp)
     else:
         device = resolve_device(want)
         if device.type == "cuda" and args.local_rank is not None:
-            device = torch.device("cuda", args.local_rank)
+            device = torch.device("cuda", args.local_rank * args.tp)
+    tp_row(args, device)
     if is_main():
         print("Load options")
         for k, v in sorted(vars(args).items()):
@@ -151,6 +157,33 @@ def start(args) -> torch.device:
     if is_main():
         os.makedirs(f"checkpoint/{args.name}", exist_ok=True)
     return device
+
+
+def tp_row(args, device) -> list:
+    """The devices this rank splits its wide weights over (--tp of them,
+    the first being `device`): consecutive cards, or the CPU --tp times.
+    Raises SystemExit when the row's last card is not visible."""
+    if device.type != "cuda":
+        return [device] * args.tp
+    first = device.index or 0
+    visible = torch.cuda.device_count()
+    if first + args.tp > visible:
+        raise SystemExit(
+            f"error: --tp {args.tp} on rank {C.get_rank()} of {C.get_world_size()} "
+            f"needs cards cuda:{first}-{first + args.tp - 1} "
+            f"({C.get_world_size() * args.tp} for the job); {visible} visible")
+    return [torch.device("cuda", first + j) for j in range(args.tp)]
+
+
+def shard(args, device, *modules) -> None:
+    """With --tp > 1, each module's wide weights split over this rank's row
+    (`parallel.tensor.shard_module`, JAX's rule), in place."""
+    if args.tp > 1:
+        from vtoonify_tpu_torch.parallel.tensor import shard_module
+
+        row = tp_row(args, device)
+        for m in modules:
+            shard_module(m, row)
 
 
 def is_main() -> bool:

@@ -15,7 +15,10 @@ reads the *_state.ckpt) and, with --export_pt, reference-format .pt files;
 logs go to log/NAME/. Several cards: one process each, under `torchrun
 --nproc_per_node=N -m vtoonify_tpu_torch.cli.train_d ...` or with
 --multihost --coordinator HOST:PORT --num_processes N --process_id R;
---batch is the global batch and rank 0 alone writes. --tp > 1 is refused.
+--batch is the global batch and rank 0 alone writes. --tp k splits the
+wide weights of the frozen backbone (both stages) and of the student and the
+discriminator (stage 2) over k cards a rank (cuda:LOCAL_RANK * k onward;
+with --cpu the CPU k times), as the JAX trainer splits them over 'tp'.
 """
 
 from __future__ import annotations
@@ -109,6 +112,7 @@ def main(argv=None):
             args.start_iter = state.step
             print(f"resumed pretrain state at step {args.start_iter}")
         _, frozen = S.split_trainable(vt, pretrain=True)
+        TL.shard(args, device, *frozen.values())  # the JAX trainer's tp trees
 
         def step(idx):
             # d_s schedule (train_vtoonify_d.py:108-112)
@@ -161,6 +165,7 @@ def main(argv=None):
         msk_loss=args.msk_loss, lr=args.lr, **prec,
         **(TL.TINY_TCFG if args.tiny else {}))
 
+    TL.shard(args, device, vt, d)  # the JAX trainer's tp trees
     _, frozen = S.split_trainable(vt)
     state = S.init_train_d_state(vt, d, TL.local_batch(args), cfg, tcfg,
                                  device=device)

@@ -11,6 +11,9 @@ Usage (the card; add --cpu for the CPU):
 Writes checkpoint/NAME/{pretrain.ckpt, pretrain_state.ckpt, vtoonify.ckpt,
 train_state.ckpt} and, with --export_pt, reference-format .pt files; logs
 go to log/NAME/. Several cards: one process each, as cli/train_d.py says.
+--tp k splits the wide weights of G0 and the frozen G1 (both stages) and of
+the student and the discriminator (stage 2) over k cards a rank, as
+cli/train_d.py says.
 """
 
 from __future__ import annotations
@@ -102,6 +105,7 @@ def main(argv=None):
             args.start_iter = state.step
             print(f"resumed pretrain state at step {args.start_iter}")
         _, frozen = S.split_trainable(vt, pretrain=True)
+        TL.shard(args, device, base, *frozen.values())  # the JAX trainer's tp trees
 
         def step(idx):
             return S.pretrain_t_step(state, frozen, base, parsing, cfg,
@@ -139,6 +143,7 @@ def main(argv=None):
                           perc_loss=args.perc_loss, tmp_loss=args.tmp_loss,
                           lr=args.lr, **prec, **(TL.TINY_TCFG if args.tiny else {}))
 
+    TL.shard(args, device, vt, d, base)  # the JAX trainer's tp trees
     _, frozen = S.split_trainable(vt)
     state = S.init_train_t_state(vt, d, tcfg, device=device)
     state_path = f"{ckdir}/train_state.ckpt"

@@ -37,7 +37,9 @@ def flatten_torch_state(obj) -> dict:
 
 
 def _j(a):
-    return np.ascontiguousarray(a, dtype=np.float32)
+    # float32, and a view where it is one: the leaf is copied once, where
+    # the tree becomes a state dict (convert/from_jax.py::jax_state_dict)
+    return np.asarray(a, dtype=np.float32)
 
 
 def _linear(sd, p):

@@ -20,6 +20,7 @@ from torch import nn
 
 from vtoonify_tpu_torch.models import generator as G
 from vtoonify_tpu_torch.nn import layers as L
+from vtoonify_tpu_torch.parallel.tensor import whole
 
 
 @dataclass(frozen=True)
@@ -135,7 +136,7 @@ def dualstylegan_apply(p: DualStyleGAN, cfg: DualStyleGANConfig, styles,
         return wts[i] * L.equal_linear(res[i], adastyles[:, i]) + (1 - wts[i]) * latent[:, i]
 
     batch = latent.shape[0]
-    out = gp.input.to(latent.dtype).expand(batch, -1, -1, -1)
+    out = whole(gp.input, latent.device).to(latent.dtype).expand(batch, -1, -1, -1)
     out = L.styled_conv(gp.conv1, out, latent[:, 0], noise=noise[0])
     if use_res and fuse_index > 0:
         out = L.ada_res_block(res[0], out, resstyles[:, 0], wts[0])

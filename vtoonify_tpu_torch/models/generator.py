@@ -22,6 +22,7 @@ from torch import nn
 
 from vtoonify_tpu_torch.nn import layers as L
 from vtoonify_tpu_torch.parallel import collectives as C
+from vtoonify_tpu_torch.parallel.tensor import whole
 
 
 def channel_table(channel_multiplier: int = 2, channel_max: int = 512) -> dict:
@@ -158,7 +159,7 @@ def generator_apply(p: Generator, cfg: GeneratorConfig, latent,
     if noise is None:
         noise = [None] * cfg.num_layers
     batch = latent.shape[0]
-    out = p.input.to(latent.dtype).expand(batch, -1, -1, -1)
+    out = whole(p.input, latent.device).to(latent.dtype).expand(batch, -1, -1, -1)
     out = L.styled_conv(p.conv1, out, latent[:, 0], noise=noise[0])
     skip = L.to_rgb(p.to_rgb1, out, latent[:, 1])
     i = 1

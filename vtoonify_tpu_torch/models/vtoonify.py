@@ -24,6 +24,7 @@ from torch import nn
 from vtoonify_tpu_torch.models import dualstylegan as D
 from vtoonify_tpu_torch.models import generator as G
 from vtoonify_tpu_torch.nn import layers as L
+from vtoonify_tpu_torch.parallel.tensor import whole
 
 
 @dataclass(frozen=True)
@@ -346,5 +347,6 @@ def cond_discriminator_apply(p: CondDiscriminator, cfg: CondDiscriminatorConfig,
         lab = L.linear_torch(lp, lab)
         if i < 2:
             lab = F.leaky_relu(lab, 0.2)
-    cond = torch.cat([lab, p.style_embed[style_ind].to(lab.dtype)], dim=1)
+    embed = whole(p.style_embed, lab.device)  # split over 'tp' at a low min_channels
+    cond = torch.cat([lab, embed[style_ind].to(lab.dtype)], dim=1)
     return torch.sum(h * cond, dim=1, keepdim=True) / math.sqrt(cond.shape[-1])

@@ -26,6 +26,13 @@ The serving path's layers also take a row-sharded activation
 read halo rows from the neighbouring slabs, B1 runs on each slab with its
 halo rows and drops the output rows they give, and `instance_norm_2d` sums
 its statistics over the slabs.
+A wide weight may be split over a 'tp' row of devices (`parallel.tensor`:
+`p.weight` is then a `Shards`): the equalized-LR linear and conv, the conv
+layer, the modulated conv and the styled conv, the plain conv and linear run
+per output-channel slab on each shard's device through `tensor.split_out`,
+with everything that depends on one output channel (bias, activation, the
+demodulation, the shared-style fold, the up conv's phase packing, noise and
+B2) on the shard, and the slabs concatenated on the first device.
 Not ported (TPU-only): the space-to-depth packed stage variants and the
 cat2-split weight storage (fusion convs and the discriminator's final conv
 hold one merged weight).
@@ -45,6 +52,7 @@ from vtoonify_tpu_torch.ops.convs import conv2d, conv_transpose2d
 from vtoonify_tpu_torch.ops.fused_act import fused_leaky_relu
 from vtoonify_tpu_torch.ops.upfirdn2d import blur, make_kernel, upsample_2x
 from vtoonify_tpu_torch.parallel import spatial
+from vtoonify_tpu_torch.parallel import tensor as tp
 
 BLUR_KERNEL = (1.0, 3.0, 3.0, 1.0)
 
@@ -124,13 +132,15 @@ class EqualLinear(nn.Module):
 def equal_linear(p, x, lr_mul: float = 1.0, activation: bool = False):
     """reference model.py:133-162."""
     scale = (1.0 / math.sqrt(p.weight.shape[1])) * lr_mul
-    out = x @ (p.weight * scale).to(x.dtype).t()
-    b = p.bias
-    if activation:
-        return fused_leaky_relu(out, None if b is None else b * lr_mul)
-    if b is not None:
-        out = out + (b * lr_mul).to(out.dtype)
-    return out
+
+    def one(w, x, b):
+        out = x @ (w * scale).to(x.dtype).t()
+        if activation:
+            return fused_leaky_relu(out, None if b is None else b * lr_mul)
+        if b is not None:
+            out = out + (b * lr_mul).to(out.dtype)
+        return out
+    return tp.split_out(one, p.weight, x, (p.bias,), dim=-1)
 
 
 class EqualConv2d(nn.Module):
@@ -141,15 +151,20 @@ class EqualConv2d(nn.Module):
         self.bias = _param(torch.zeros(out_ch)) if bias else None
 
 
+def _equal_conv(w, x, b, stride=1, padding=0, dilation=1):
+    cout, cin, kh, kw = w.shape
+    scale = 1.0 / math.sqrt(cin * kh * kw)
+    out = conv2d(x, (w * scale).to(x.dtype), stride=stride, padding=padding,
+                 dilation=dilation)
+    if b is not None:
+        out = out + b.to(out.dtype)[None, :, None, None]
+    return out
+
+
 def equal_conv2d(p, x, stride=1, padding=0, dilation=1):
     """reference model.py:93-124 (incl. the VToonify dilation modification)."""
-    cout, cin, kh, kw = p.weight.shape
-    scale = 1.0 / math.sqrt(cin * kh * kw)
-    out = conv2d(x, (p.weight * scale).to(x.dtype), stride=stride,
-                 padding=padding, dilation=dilation)
-    if p.bias is not None:
-        out = out + p.bias.to(out.dtype)[None, :, None, None]
-    return out
+    return tp.split_out(functools.partial(_equal_conv, stride=stride, padding=padding,
+                                          dilation=dilation), p.weight, x, (p.bias,))
 
 
 # ---------------------------------------------------------------------------
@@ -168,16 +183,18 @@ class ConvLayer(nn.Module):
 
 def conv_layer(p, x, ksize, downsample=False, activate=True, dilation=1,
                blur_kernel: Sequence[float] = BLUR_KERNEL):
-    if downsample:
+    if downsample:  # the blur runs once, on the whole input
         pd = (len(blur_kernel) - 2) + (ksize - 1)
         x = blur(x, _blur_1d(tuple(blur_kernel)), pad=((pd + 1) // 2, pd // 2))
-        out = equal_conv2d(p.conv, x, stride=2, padding=0)
+        conv = dict(stride=2, padding=0)
     else:
-        out = equal_conv2d(p.conv, x, stride=1, padding=ksize // 2 + dilation - 1,
-                           dilation=dilation)
-    if activate:
-        out = fused_leaky_relu(out, p.act_bias)
-    return out
+        conv = dict(stride=1, padding=ksize // 2 + dilation - 1, dilation=dilation)
+
+    def one(w, x, b, act_bias):
+        out = _equal_conv(w, x, b, **conv)
+        return fused_leaky_relu(out, act_bias) if activate else out
+    return tp.split_out(one, p.conv.weight, x,
+                        (p.conv.bias, p.act_bias if activate else None))
 
 
 class ResBlock(nn.Module):
@@ -245,22 +262,36 @@ def modulated_conv2d(p, x, style, demodulate=True, upsample=False,
     conv, then the x4-gain blur), the downsampling conv (the blur, then a
     stride-2 conv) and the 1x1 and other sizes. `act_bias` adds
     styled_conv's bias + leaky-ReLU: in B1's epilogue, or B2 after the
-    other forms."""
-    w = p.weight
+    other forms. A split weight runs each output-channel slab on its
+    shard's device (`tensor.split_out`); the modulation `s` is whole
+    before any shard reads it."""
+    s = equal_linear(p.modulation, style)  # (B, cin)
+    return tp.split_out(functools.partial(
+        _modconv, demodulate=demodulate, upsample=upsample, downsample=downsample,
+        blur_kernel=blur_kernel, eps=eps, fuse_upsample=fuse_upsample),
+        p.weight, x, (act_bias,), (s,))
+
+
+def _modconv(w, x, act_bias, s, demodulate=True, upsample=False, downsample=False,
+             blur_kernel: Sequence[float] = BLUR_KERNEL, eps: float = 1e-8,
+             fuse_upsample: bool = True):
+    """modulated_conv2d on the output channels of `w` (the whole weight or
+    one shard), given the modulation s (B, cin) and the activation bias of
+    those channels (or None)."""
     cout, cin, kh, kw = w.shape
     scale = 1.0 / math.sqrt(cin * kh * kw)
-    s = equal_linear(p.modulation, style)  # (B, cin)
     d = None
+    acc = torch.promote_types(s.dtype, torch.float32)  # f32 (f64 for f64)
     if demodulate:
         # d_b,o = rsqrt(sum_i s_bi^2 * (scale^2 * sum_hw W_oihw^2) + eps)
         w2 = (scale * scale) * w.square().sum(dim=(2, 3)).t()  # (cin, cout)
-        d = torch.rsqrt(s.float().square() @ w2.float() + eps)  # f32
+        d = torch.rsqrt(s.to(acc).square() @ w2.to(acc) + eps)
 
     # shared-style fold (one style code for a batch of frames): modulation
     # and demodulation go into the kernel, not the activations
     fold = s.shape[0] == 1 and x.shape[0] != 1
     if fold:
-        wf = (w * scale) * s[0].float()[None, :, None, None]
+        wf = (w * scale) * s[0].to(acc)[None, :, None, None]
         if d is not None:
             wf = wf * d[0][:, None, None, None]
         wsc, s_x, d_x = wf.to(x.dtype), None, None
@@ -319,7 +350,11 @@ def noise_injection(p, x, noise):
     """reference model.py:309-320; noise (B, 1, H, W) or None."""
     if noise is None:
         return x
-    return x + p.weight.to(x.dtype) * noise.to(x.dtype)
+    return _inject(p.weight, x, noise)
+
+
+def _inject(weight, x, noise):
+    return x + weight.to(x.dtype) * noise.to(x.dtype)
 
 
 class StyledConv(nn.Module):
@@ -335,13 +370,18 @@ def styled_conv(p, x, style, noise=None, upsample=False, demodulate=True):
     """reference model.py:336-370. Without noise (VToonify runs with zero
     noise, vtoonify.py:266-267) the bias + leaky-ReLU fuse into B1's
     epilogue; with noise (B, 1, H', W') B1 runs raw (then B4 for the up
-    conv), the noise is added, then B2."""
+    conv), the noise is added, then B2; on a split weight all of it runs
+    on each shard."""
     if noise is None:
         return modulated_conv2d(p.conv, x, style, demodulate=demodulate,
                                 upsample=upsample, act_bias=p.act_bias)
-    out = modulated_conv2d(p.conv, x, style, demodulate=demodulate,
-                           upsample=upsample)
-    return fused_leaky_relu(noise_injection(p.noise, out, noise), p.act_bias)
+    s = equal_linear(p.conv.modulation, style)
+
+    def one(w, x, act_bias, s, noise_weight, noise):
+        out = _modconv(w, x, None, s, demodulate=demodulate, upsample=upsample)
+        return fused_leaky_relu(_inject(noise_weight, out, noise), act_bias)
+    return tp.split_out(one, p.conv.weight, x, (p.act_bias,),
+                        (s, p.noise.weight, noise))
 
 
 class ToRGB(nn.Module):
@@ -377,11 +417,16 @@ class Conv2dTorch(nn.Module):
 
 
 def conv2d_torch(p, x, stride=1, padding=0, dilation=1, groups=1):
-    out = conv2d(x, p.weight.to(x.dtype), stride=stride, padding=padding,
-                 dilation=dilation, groups=groups)
-    if p.bias is not None:
-        out = out + p.bias.to(out.dtype)[None, :, None, None]
-    return out
+    if groups != 1 and isinstance(p.weight, tp.Shards):
+        raise ValueError("conv2d_torch: a grouped conv's weight is not split")
+
+    def one(w, x, b):
+        out = conv2d(x, w.to(x.dtype), stride=stride, padding=padding,
+                     dilation=dilation, groups=groups)
+        if b is not None:
+            out = out + b.to(out.dtype)[None, :, None, None]
+        return out
+    return tp.split_out(one, p.weight, x, (p.bias,))
 
 
 def conv2d_torch_cat2(p, x1, x2, padding=0):
@@ -400,10 +445,12 @@ class LinearTorch(nn.Module):
 
 
 def linear_torch(p, x):
-    out = x @ p.weight.to(x.dtype).t()
-    if p.bias is not None:
-        out = out + p.bias.to(out.dtype)
-    return out
+    def one(w, x, b):
+        out = x @ w.to(x.dtype).t()
+        if b is not None:
+            out = out + b.to(out.dtype)
+        return out
+    return tp.split_out(one, p.weight, x, (p.bias,), dim=-1)
 
 
 class PReLU(nn.Module):

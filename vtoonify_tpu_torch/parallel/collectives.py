@@ -81,16 +81,18 @@ def all_gather_tree(tree):
 
 def gather_grad(grads):
     """The mean over ranks of a list of gradients (distributed.py:57-66):
-    one flattened all-reduce bucket per dtype. None entries stay None."""
+    one flattened all-reduce bucket per dtype and device (a weight split
+    over a 'tp' row has a gradient per shard, each on its shard's device).
+    None entries stay None."""
     if not active():
         return list(grads)
     out = list(grads)
     world = get_world_size()
-    by_dtype: dict = {}
+    buckets: dict = {}
     for i, g in enumerate(out):
         if g is not None:
-            by_dtype.setdefault(g.dtype, []).append(i)
-    for idx in by_dtype.values():
+            buckets.setdefault((g.dtype, g.device), []).append(i)
+    for idx in buckets.values():
         flat = _all_reduce_sum(torch.cat([out[i].reshape(-1) for i in idx])) / world
         for i, part in zip(idx, flat.split([out[i].numel() for i in idx])):
             out[i] = part.view_as(out[i])

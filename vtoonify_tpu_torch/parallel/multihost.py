@@ -42,7 +42,8 @@ def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
                local_rank: Optional[int] = None,
-               device=None, backend: Optional[str] = None) -> torch.device:
+               device=None, backend: Optional[str] = None,
+               tp: int = 1) -> torch.device:
     """Join the job's process group; returns this process's device.
 
     Resolution order: explicit arguments > VTOONIFY_COORDINATOR /
@@ -50,7 +51,8 @@ def initialize(coordinator_address: Optional[str] = None,
     MASTER_ADDR:MASTER_PORT / WORLD_SIZE / RANK. Ranks given without a
     coordinator raise ValueError, as does a job with neither. `device`: None
     or "cuda" for the card, where the process takes cuda:LOCAL_RANK (the
-    argument, else LOCAL_RANK, else the rank modulo the visible cards);
+    argument, else LOCAL_RANK, else the rank modulo the visible cards), or
+    with `tp` > 1 the first of its row of tp cards, cuda:LOCAL_RANK * tp;
     "cpu" for the CPU."""
     coordinator_address = coordinator_address or os.environ.get(ENV_COORDINATOR)
     if num_processes is None:
@@ -81,8 +83,8 @@ def initialize(coordinator_address: Optional[str] = None,
         if local_rank is None:
             local_rank = _env_int("LOCAL_RANK")
         if local_rank is None:
-            local_rank = process_id % torch.cuda.device_count()
-        device = torch.device("cuda", local_rank)
+            local_rank = process_id % max(torch.cuda.device_count() // tp, 1)
+        device = torch.device("cuda", local_rank * tp)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     dist.init_process_group(

@@ -11,10 +11,12 @@ are NCHW. Compute dtype is bfloat16 by default; the modules are cast once
 when the pipeline is built. Style preparation (pSp encoder, mapping MLP,
 exemplar splice) runs in float32 whatever the compute dtype. The pipeline
 runs on the card unless it is built with `device="cpu"`. With a `mesh`
-(parallel/mesh.py::make_mesh) it keeps one replica of the modules per mesh
-device and splits each batch's frames over them (frame-parallel serving);
-with a spatial mesh (`make_spatial_mesh`) it splits each frame's rows over
-the devices instead, and the graph runs on row slabs (`parallel.spatial`).
+(parallel/mesh.py::make_mesh) it keeps one copy of the modules per dp row
+of the mesh and splits each batch's frames over them (frame-parallel
+serving), the wide VToonify weights of a row split over its 'tp' devices
+(`parallel.tensor`); with a spatial mesh (`make_spatial_mesh`) it splits
+each frame's rows over the devices instead, and the graph runs on row slabs
+(`parallel.spatial`).
 """
 
 from __future__ import annotations
@@ -129,15 +131,19 @@ class ToonifyPipeline:
     returns (B, 2H, 2W, 12) phase-major uint8; `unpack_frame` finishes it
     (the video writer and `process_image` do so).
 
-    mesh: a `parallel.mesh.Mesh`; one replica of the VToonify model (its
-    mapping MLP included) and of BiSeNet per mesh device, in the compute
-    dtype. `process_batch` and `process_batch_with_parsing` split the
-    frames over the replicas (a batch the mesh does not divide is refused),
-    launch every chunk before waiting on any and return the frames in order
-    on the first device. Style preparation runs on the first device. A
-    replica's frames are the numbers one device gives for those frames in
+    mesh: a `parallel.mesh.Mesh`; one copy of the VToonify model (its
+    mapping MLP included) and of BiSeNet per dp row of the mesh, in the
+    compute dtype, on the row's first device. `process_batch` and
+    `process_batch_with_parsing` split the frames over the rows (a batch
+    the mesh does not divide is refused), launch every chunk before waiting
+    on any and return the frames in order on the first device. Style
+    preparation runs on the first device, on the unsplit float32 mapping
+    MLP. A row's frames are the numbers one device gives for those frames in
     one call (a one-frame share takes the unfolded style form, as a batch of
-    one does).
+    one does). With `tp` > 1 (`make_mesh(n, tp=k)`) the row's VToonify holds
+    its wide weights split over the row's k devices (JAX's rule, `min_channels`
+    256): each wide layer runs an output-channel slab on each of them and
+    gathers the slabs on the row's first device; BiSeNet stays whole there.
     A spatial mesh (`make_spatial_mesh`) splits each frame's rows over its
     devices instead, for any batch: the modules stay on the first device
     with a registered copy on each other one (`parallel.spatial.replicate`),
@@ -167,20 +173,20 @@ class ToonifyPipeline:
         self.device = resolve_device(device)
         self.vt = copy.deepcopy(vt).to(self.device, dtype)
         self.parsing = copy.deepcopy(parsing).to(self.device, dtype)
-        # (device, vt, parsing) per mesh device; the first is the pipeline's own
+        # (device, vt, parsing) per dp row; the first is the pipeline's own
         self._replicas = [(self.device, self.vt, self.parsing)]
         self._spatial = mesh is not None and mesh.axis == "sp"
         if self._spatial:
             self._sp_copies = (spatial.replicate(self.vt, mesh.devices)
                                + spatial.replicate(self.parsing, mesh.devices))
         elif mesh is not None:
-            from vtoonify_tpu_torch.parallel.mesh import shard_params
+            from vtoonify_tpu_torch.parallel.tensor import shard_module
 
-            rest = mesh.devices[1:]
-            if rest:
-                sub = type(mesh)(rest)
-                self._replicas += list(zip(rest, shard_params(self.vt, sub),
-                                           shard_params(self.parsing, sub)))
+            first, *rest = mesh.rows
+            for row in rest:  # each row's first device, its wide weights split over the row
+                self._replicas.append((row[0], shard_module(copy.deepcopy(self.vt), row),
+                                       copy.deepcopy(self.parsing).to(row[0])))
+            shard_module(self.vt, first)
         gp = vt.generator.generator if vt_cfg.backbone == "dualstylegan" else vt.generator
         self._mapping = nn.Module()  # holds `style`, all that style_mlp reads
         self._mapping.style = copy.deepcopy(gp.style).to(self.device, torch.float32)

@@ -233,9 +233,10 @@ def toonify_frames(
         arr = np.stack(batch_frames)
         if parsing_maps is not None:
             pm = parsing_maps[frame_idx - len(batch_frames): frame_idx]
-        # a frame-parallel pipeline splits a batch evenly over its replicas:
-        # a short last batch is topped up with its last frame (not written);
-        # a spatial mesh splits rows and takes any batch
+        # a frame-parallel pipeline splits a batch evenly over its dp rows
+        # (a (dp, tp) mesh's dp width): a short last batch is topped up with
+        # its last frame (not written); a spatial mesh splits rows and takes
+        # any batch
         mesh = getattr(pipeline, "mesh", None)
         extra = 0 if mesh is None else -len(arr) % mesh.shape.get("dp", 1)
         if extra:

@@ -34,6 +34,13 @@ the global batch (models/generator.py), and the losses are held to the
 global batch's (train/losses.py; LPIPS's sum below). No
 DistributedDataParallel: the steps run `functional_call` on explicit
 parameter lists with two optimizers and several `autograd.grad` calls.
+
+Tensor parallelism (the trainers' --tp k): the modules may hold their wide
+weights split over a row of k devices (`parallel.tensor.shard_module`,
+before the state is built). Each shard is a parameter of its own: the
+casts, Adam, the EMA and the gradient all-reduce run per shard, and a
+module that is split is not moved (`shard_module` placed it; its other
+tensors are on the row's first device, the step's device).
 """
 
 from __future__ import annotations
@@ -59,6 +66,7 @@ from vtoonify_tpu_torch.models.vtoonify import (
 from vtoonify_tpu_torch.nn.layers import set_trainable
 from vtoonify_tpu_torch.ops.interp import avg_pool
 from vtoonify_tpu_torch.parallel import collectives as C
+from vtoonify_tpu_torch.parallel.tensor import is_sharded
 from vtoonify_tpu_torch.train import synth
 from vtoonify_tpu_torch.train.augment import sample_affine
 from vtoonify_tpu_torch.train.ema import ema_update
@@ -174,12 +182,18 @@ def _adam(params, lr):
                             eps=ADAM_EPS)
 
 
+def _place(module, device):
+    """`module` on `device`, unless it is split over a 'tp' row (placed by
+    `shard_module`, with everything else on the row's first device)."""
+    return module if is_sharded(module) else module.to(device)
+
+
 def _trainable(vt, pretrain: bool, device):
     """Moves `vt` to `device` (None: the card; raises without one) and marks
     its trainable children; returns them as a ModuleDict, their EMA copy
     (frozen) and the device."""
     device = resolve_device(device)
-    vt.to(device)
+    _place(vt, device)
     trainable = nn.ModuleDict(split_trainable(vt, pretrain)[0])
     set_trainable(trainable)
     return trainable, set_trainable(copy.deepcopy(trainable), False), device
@@ -347,7 +361,7 @@ def init_train_d_state(vt, d, batch: int, cfg: VToonifyConfig,
     (`batch`: this rank's rows). Under a process group every rank starts
     from rank 0's parameters."""
     trainable, ema, dev = _trainable(vt, False, device)
-    set_trainable(d.to(dev))
+    set_trainable(_place(d, dev))
     C.broadcast_modules(trainable, ema, d)
     return TrainDState(
         trainable=trainable, ema=ema, d=d,
@@ -361,7 +375,7 @@ def init_train_d_state(vt, d, batch: int, cfg: VToonifyConfig,
 def init_train_t_state(vt, d, tcfg: TrainDConfig, device=None) -> TrainTState:
     """`init_train_d_state` for VToonify-T: no color-jitter carry."""
     trainable, ema, dev = _trainable(vt, False, device)
-    set_trainable(d.to(dev))
+    set_trainable(_place(d, dev))
     C.broadcast_modules(trainable, ema, d)
     return TrainTState(trainable=trainable, ema=ema, d=d,
                        g_opt=_adam(trainable.parameters(), tcfg.lr),
@@ -369,11 +383,12 @@ def init_train_t_state(vt, d, tcfg: TrainDConfig, device=None) -> TrainTState:
 
 
 def _to(module, device):
-    """Move a frozen module to the step's device (no-op when it is there)."""
+    """Move a frozen module to the step's device (no-op when it is there,
+    or when it is split over a 'tp' row)."""
     if module is not None:
         t = next(module.parameters(), None)
         if t is not None and t.device != device:
-            module.to(device)
+            _place(module, device)
     return module
 
 

@@ -10,8 +10,9 @@ place of its Orbax `save_pytree` / `load_pytree`).
 Each loader reads a released PyTorch artifact (vtoonify_*.pt,
 generator.pt, encoder.pt, faceparsing.pth, exstyle_code.npy,
 directions.npy, raft-things.pth), maps its keys with `convert/torch_import.py` and loads the
-result strictly (`convert/from_jax.py::load_jax_params`: every parameter
-and buffer set, every converted leaf used) into a module built on the CPU.
+result strictly (`convert/from_jax.py::jax_state_dict`: every parameter
+and buffer set, every converted leaf used) into a module built on the meta
+device, so that it holds the loaded CPU tensors and no random init.
 Move it to the card with `.to("cuda")` or through `ToonifyPipeline`.
 
 The trainers' own files are `torch.save` dicts of tensors, numbers and
@@ -31,13 +32,14 @@ import torch
 from torch import nn
 
 from vtoonify_tpu_torch.convert import torch_import as TI
-from vtoonify_tpu_torch.convert.from_jax import load_jax_params
+from vtoonify_tpu_torch.convert.from_jax import jax_state_dict
 from vtoonify_tpu_torch.models.bisenet import init_bisenet
 from vtoonify_tpu_torch.models.dualstylegan import init_dualstylegan
 from vtoonify_tpu_torch.models.generator import init_generator
 from vtoonify_tpu_torch.models.psp_encoder import PSPEncoderConfig, init_psp_encoder
 from vtoonify_tpu_torch.models.raft import RAFTConfig, init_raft
 from vtoonify_tpu_torch.models.vtoonify import VToonifyConfig, init_vtoonify
+from vtoonify_tpu_torch.parallel.tensor import load_optimizer_state_dict, optimizer_state_dict
 
 
 def _torch_load(path):
@@ -45,9 +47,20 @@ def _torch_load(path):
 
 
 def _init_generator():
-    # the random init is overwritten by the load; its own generator keeps
-    # the global RNG untouched
+    # the loaders build on the meta device, where the init draws nothing;
+    # its own generator keeps the global RNG untouched all the same
     return torch.Generator().manual_seed(0)
+
+
+def _built_from(init, tree):
+    """The module init(generator) builds, filled strictly from the converted
+    `tree` (every parameter and buffer set, every leaf used). It is built on
+    the meta device and given the loaded tensors, so that no random init is
+    drawn only to be overwritten."""
+    with torch.device("meta"):
+        module = init(_init_generator())
+    module.load_state_dict(jax_state_dict(tree), strict=True, assign=True)
+    return module
 
 
 # channels[res] = _CH_BASE[res] * channel_multiplier for res > 32
@@ -102,31 +115,27 @@ def load_reference_vtoonify(path: str, cfg=None):
     sd = TI.flatten_torch_state(ckpt.get("g_ema", ckpt))
     if cfg is None:
         cfg = infer_vtoonify_config(sd)
-    return load_jax_params(init_vtoonify(cfg, _init_generator()),
-                           TI.convert_vtoonify(sd, cfg)), cfg
+    return _built_from(lambda g: init_vtoonify(cfg, g), TI.convert_vtoonify(sd, cfg)), cfg
 
 
 def load_reference_dualstylegan(path: str, cfg):
     """generator.pt ({'g_ema': state_dict}) -> DualStyleGAN."""
     ckpt = _torch_load(path)
     sd = TI.flatten_torch_state(ckpt.get("g_ema", ckpt))
-    return load_jax_params(init_dualstylegan(cfg, _init_generator()),
-                           TI.convert_dualstylegan(sd, cfg))
+    return _built_from(lambda g: init_dualstylegan(cfg, g), TI.convert_dualstylegan(sd, cfg))
 
 
 def load_reference_stylegan(path: str, cfg):
     """A StyleGAN2 generator ({'g_ema': state_dict}) -> Generator."""
     ckpt = _torch_load(path)
     sd = TI.flatten_torch_state(ckpt.get("g_ema", ckpt))
-    return load_jax_params(init_generator(cfg, _init_generator()),
-                           TI.convert_generator(sd, cfg))
+    return _built_from(lambda g: init_generator(cfg, g), TI.convert_generator(sd, cfg))
 
 
 def load_reference_faceparsing(path: str):
     """faceparsing.pth (a bare state_dict) -> BiSeNet."""
     sd = TI.flatten_torch_state(_torch_load(path))
-    return load_jax_params(init_bisenet(generator=_init_generator()),
-                           TI.convert_bisenet(sd))
+    return _built_from(lambda g: init_bisenet(generator=g), TI.convert_bisenet(sd))
 
 
 def load_reference_psp(path: str, cfg=None):
@@ -141,7 +150,7 @@ def load_reference_psp(path: str, cfg=None):
         cfg = PSPEncoderConfig(n_styles=n_styles or 18)
     params, latent_avg = TI.load_psp_standalone(
         {"state_dict": sd, "latent_avg": np.asarray(ckpt["latent_avg"])}, cfg)
-    psp = load_jax_params(init_psp_encoder(cfg, _init_generator()), params)
+    psp = _built_from(lambda g: init_psp_encoder(cfg, g), params)
     return psp, torch.from_numpy(latent_avg), cfg
 
 
@@ -149,7 +158,7 @@ def load_reference_raft(path: str, cfg=RAFTConfig()):
     """raft-things.pth (a bare state dict, keys with or without the
     'module.' prefix) -> RAFT."""
     sd = TI.flatten_torch_state(_torch_load(path))
-    return load_jax_params(init_raft(cfg, _init_generator()), TI.convert_raft(sd))
+    return _built_from(lambda g: init_raft(cfg, g), TI.convert_raft(sd))
 
 
 def load_exstyle_bank(path: str):
@@ -166,21 +175,32 @@ def load_directions(path: str):
 # the trainers' own files
 
 
+# the module each optimizer of a train state steps
+_OPTIMIZED = {"g_opt": "trainable", "d_opt": "d"}
+
+
 def save_train_state(path: str, state) -> None:
     """Persist a PretrainState / TrainDState / TrainTState exactly: module
-    and optimizer state dicts, tensors and the step."""
+    state dicts, the optimizers' state by parameter name
+    (`parallel.tensor.optimizer_state_dict`), tensors and the step. Weights
+    split over a 'tp' row are saved whole, so the file is the same at any
+    tp."""
     out = {"kind": type(state).__name__}
     for f in dataclasses.fields(state):
         v = getattr(state, f.name)
-        out[f.name] = (v.state_dict() if isinstance(v, (nn.Module, torch.optim.Optimizer))
-                       else v)
+        if isinstance(v, torch.optim.Optimizer):
+            v = optimizer_state_dict(v, getattr(state, _OPTIMIZED[f.name]))
+        elif isinstance(v, nn.Module):
+            v = v.state_dict()
+        out[f.name] = v
     torch.save(out, path)
 
 
 def load_train_state(path: str, template, device=None):
     """Load a saved state into `template` (the same kind of state, from the
-    same init) in place and return it. Tensors are mapped onto `device`
-    (None: the device of the template's trainable parameters)."""
+    same init, at any tp) in place and return it. Tensors are mapped onto
+    `device` (None: the device of the template's trainable parameters) and
+    split again where the template's weights are split."""
     if device is None:
         device = next(template.trainable.parameters()).device
     saved = torch.load(path, map_location=device, weights_only=True)
@@ -189,7 +209,10 @@ def load_train_state(path: str, template, device=None):
                          f"{type(template).__name__}")
     for f in dataclasses.fields(template):
         v = getattr(template, f.name)
-        if isinstance(v, (nn.Module, torch.optim.Optimizer)):
+        if isinstance(v, torch.optim.Optimizer):
+            load_optimizer_state_dict(v, getattr(template, _OPTIMIZED[f.name]),
+                                      saved[f.name])
+        elif isinstance(v, nn.Module):
             v.load_state_dict(saved[f.name])
         else:
             setattr(template, f.name, saved[f.name])
