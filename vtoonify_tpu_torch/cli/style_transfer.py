@@ -85,8 +85,9 @@ def build_parser():
                         "of the first N cards, the frames of a batch split "
                         "over them")
     p.add_argument("--profile", action="store_true",
-                   help="print a decode/preprocess/dispatch/fetch/encode "
-                        "stage breakdown after video processing")
+                   help="print the video engine's stage breakdown after "
+                        "video processing: decode, preprocess, dispatch, "
+                        "fetch (fetch_wait + fetch_copy), write, encode")
     p.add_argument("--frame_limit", type=int, default=None,
                    help="process at most N video frames")
     return p
@@ -185,9 +186,10 @@ def main(argv=None):
             frame_limit=args.frame_limit)
         print(f"{result.frames_written} frames written")
         if result.stages:
-            print("stage breakdown (wall-clock, overlapped):")
+            print("stage breakdown (wall-clock, overlapped; fetch = fetch_wait + fetch_copy):")
+            width = max(map(len, result.stages))
             for name, s in sorted(result.stages.items()):
-                print(f"  {name:<10s} total {s['total_s']:.2f}s over "
+                print(f"  {name:<{width}s} total {s['total_s']:.2f}s over "
                       f"{s['count']} calls (mean {s['mean_ms']:.1f} ms)")
     else:
         import cv2

@@ -58,7 +58,6 @@ in exact float32 (TF32 tensor cores would miss the float32 tolerances).
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import math
 import os
@@ -67,6 +66,8 @@ from pathlib import Path
 
 import torch
 import torch.nn.functional as F
+
+from vtoonify_tpu_torch.utils.profiling import span
 
 SQRT2 = math.sqrt(2.0)
 MAX_TAPS = 12  # upfirdn2d filter taps per axis (csrc/upfirdn2d.cu MAX_TAPS)
@@ -212,21 +213,6 @@ def launch_counts() -> dict:
 def reset_launch_counts():
     for fn in KERNELS:
         fn.launches = 0
-
-
-def _host_range(name):
-    """Decorator: the wrapped forward runs inside a profiler range `name`
-    while a profiler records, so a trace shows a wrapper's host time per call
-    whether or not autograd records it; otherwise a plain call."""
-    def wrap(fn):
-        @functools.wraps(fn)
-        def run(*args):
-            if torch.autograd._profiler_enabled():
-                with torch.profiler.record_function(name):
-                    return fn(*args)
-            return fn(*args)
-        return run
-    return wrap
 
 
 def _records_grad(*ts):
@@ -383,11 +369,11 @@ def _fused_leaky_relu_cuda(x, bias, negative_slope, gain):
     return y
 
 
-@_host_range("vt::fused_leaky_relu")
 def _fused_leaky_relu_forward(x, bias, negative_slope, gain):
-    if _on_cpu(x):
-        return fused_leaky_relu_plain(x, bias, negative_slope, gain)
-    return _fused_leaky_relu_cuda(x, bias, negative_slope, gain)
+    with span("fused_leaky_relu"):
+        if _on_cpu(x):
+            return fused_leaky_relu_plain(x, bias, negative_slope, gain)
+        return _fused_leaky_relu_cuda(x, bias, negative_slope, gain)
 
 
 class _FusedLeakyReLU(torch.autograd.Function):
@@ -501,11 +487,11 @@ def _upfirdn2d_cuda(x, k2d, up, down, pad):
     return y
 
 
-@_host_range("vt::upfirdn2d")
 def _upfirdn2d_forward(x, k2d, up, down, pad):
-    if _on_cpu(x):
-        return upfirdn2d_plain(x, k2d, up, down, pad)
-    return _upfirdn2d_cuda(x, k2d, up, down, pad)
+    with span("upfirdn2d"):
+        if _on_cpu(x):
+            return upfirdn2d_plain(x, k2d, up, down, pad)
+        return _upfirdn2d_cuda(x, k2d, up, down, pad)
 
 
 class _UpFirDn2d(torch.autograd.Function):
@@ -603,7 +589,6 @@ def _depth_to_space2_cuda(x, phase_minor):
     return y
 
 
-@_host_range("vt::depth_to_space2")
 def _depth_to_space2_forward(x, phase_minor):
     if _on_cpu(x):
         return depth_to_space2_plain(x, phase_minor)
@@ -724,11 +709,11 @@ def _affine_warp_cuda(img, coef, out_hw):
     return y
 
 
-@_host_range("vt::affine_warp")
 def _affine_warp_forward(img, coef, out_hw):
-    if _on_cpu(img):
-        return affine_warp_plain(img, coef, out_hw)
-    return _affine_warp_cuda(img, coef, out_hw)
+    with span("affine_warp"):
+        if _on_cpu(img):
+            return affine_warp_plain(img, coef, out_hw)
+        return _affine_warp_cuda(img, coef, out_hw)
 
 
 class _AffineWarp(torch.autograd.Function):

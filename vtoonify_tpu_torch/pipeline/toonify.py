@@ -34,6 +34,7 @@ from vtoonify_tpu_torch.models.psp_encoder import PSPEncoderConfig, psp_encoder_
 from vtoonify_tpu_torch.models.vtoonify import VToonifyConfig, vtoonify_apply
 from vtoonify_tpu_torch.ops.interp import resize_bilinear, resize_nearest
 from vtoonify_tpu_torch.parallel import spatial
+from vtoonify_tpu_torch.utils.profiling import span
 
 PARSING_WEIGHT = 1.0 / 16.0  # reference style_transfer.py:174
 
@@ -239,35 +240,38 @@ class ToonifyPipeline:
     def process_batch(self, frames_u8, s_w, d_s: float):
         """(B, H, W, 3) uint8 -> (B, 4H, 4W, 3) uint8 tensor on the device
         (asynchronous, like the JAX device array), or (B, 2H, 2W, 12) with
-        packed_output. s_w: numpy or tensor."""
-        frames_u8 = np.asarray(frames_u8)
-        pad_h = pad_w = 0
-        mg = self.bucket_margin if self.size_bucket else 0
-        if self.size_bucket:
-            m = self.size_bucket
-            if mg:
-                frames_u8 = np.pad(frames_u8, ((0, 0), (mg, mg), (mg, mg), (0, 0)),
-                                   mode="reflect")
-            h, w = frames_u8.shape[1:3]
-            pad_h, pad_w = (-h) % m, (-w) % m
-            if pad_h or pad_w:
-                frames_u8 = np.pad(frames_u8, ((0, 0), (0, pad_h), (0, pad_w), (0, 0)),
-                                   mode="reflect")
-        out = self._run(lambda vt, parsing, f, sw: frame_graph(
-            vt, self.vt_cfg, parsing, f, sw, float(d_s), self.dtype,
-            self.packed_output), s_w, frames_u8)
-        if pad_h or pad_w or mg:
-            s = 2 if self.packed_output else 4  # a packed row covers 2 pixels
-            oh = out.shape[1] - s * (pad_h + mg)
-            ow = out.shape[2] - s * (pad_w + mg)
-            out = out[:, s * mg:oh, s * mg:ow]
-        return out
+        packed_output. s_w: numpy or tensor. A `vt::pipeline.process_batch`
+        span while `torch.profiler` records, holding `_run`'s spans."""
+        with span("pipeline.process_batch"):
+            frames_u8 = np.asarray(frames_u8)
+            pad_h = pad_w = 0
+            mg = self.bucket_margin if self.size_bucket else 0
+            if self.size_bucket:
+                m = self.size_bucket
+                if mg:
+                    frames_u8 = np.pad(frames_u8, ((0, 0), (mg, mg), (mg, mg), (0, 0)),
+                                       mode="reflect")
+                h, w = frames_u8.shape[1:3]
+                pad_h, pad_w = (-h) % m, (-w) % m
+                if pad_h or pad_w:
+                    frames_u8 = np.pad(frames_u8, ((0, 0), (0, pad_h), (0, pad_w), (0, 0)),
+                                       mode="reflect")
+            out = self._run(lambda vt, parsing, f, sw: frame_graph(
+                vt, self.vt_cfg, parsing, f, sw, float(d_s), self.dtype,
+                self.packed_output), s_w, frames_u8)
+            if pad_h or pad_w or mg:
+                s = 2 if self.packed_output else 4  # a packed row covers 2 pixels
+                oh = out.shape[1] - s * (pad_h + mg)
+                ow = out.shape[2] - s * (pad_w + mg)
+                out = out[:, s * mg:oh, s * mg:ow]
+            return out
 
     def process_batch_with_parsing(self, frames_u8, x_p, s_w, d_s: float):
         """process_batch with precomputed parsing maps x_p (B, H, W, 19)."""
-        return self._run(lambda vt, parsing, f, sw, p: frame_graph_with_parsing(
-            vt, self.vt_cfg, f, p, sw, float(d_s), self.dtype,
-            self.packed_output), s_w, np.asarray(frames_u8), x_p)
+        with span("pipeline.process_batch"):
+            return self._run(lambda vt, parsing, f, sw, p: frame_graph_with_parsing(
+                vt, self.vt_cfg, f, p, sw, float(d_s), self.dtype,
+                self.packed_output), s_w, np.asarray(frames_u8), x_p)
 
     def _run(self, graph, s_w, *batches):
         """graph(vt, parsing, frames, s_w, *rest) on each replica's share of
@@ -275,32 +279,44 @@ class ToonifyPipeline:
         chunk is uploaded and launched before any is waited on; the outputs
         are concatenated in frame order on the first device. Over a spatial
         mesh the graph runs once on every batch's row slabs and its output
-        rows are gathered on the first device."""
+        rows are gathered on the first device.
+
+        While `torch.profiler` records, three spans split the call:
+        `vt::pipeline.upload`, one over every replica's share of the
+        batches and its style code (on a spatial mesh, the row slabs);
+        `vt::pipeline.launch`, the graph's calls over the replicas; and,
+        with more than one replica or slab, `vt::pipeline.gather`, their
+        outputs onto the first device."""
         if self._spatial:
             from vtoonify_tpu_torch.parallel.mesh import shard_array_spatial
 
-            slabs = [shard_array_spatial(b, self.mesh) for b in batches]
-            with torch.inference_mode():
+            with span("pipeline.upload"):
+                slabs = [shard_array_spatial(b, self.mesh) for b in batches]
                 sw = torch.as_tensor(s_w, dtype=torch.float32, device=self.device)
+            with torch.inference_mode(), span("pipeline.launch"):
                 out = graph(self.vt, self.parsing, slabs[0], sw, *slabs[1:])
-            return spatial.gather(out, self.device)
+            with span("pipeline.gather"):
+                return spatial.gather(out, self.device)
         if len(self._replicas) == 1:
             rows = [slice(None)]
         else:
             from vtoonify_tpu_torch.parallel.mesh import shard_batch
 
             rows = shard_batch(self.mesh, len(batches[0]))
-        chunks = [[torch.as_tensor(b[r], device=dev) for b in batches]
-                  for r, (dev, _, _) in zip(rows, self._replicas)]
+        with span("pipeline.upload"):
+            chunks = [[torch.as_tensor(b[r], device=dev) for b in batches]
+                      for r, (dev, _, _) in zip(rows, self._replicas)]
+            sws = [torch.as_tensor(s_w, dtype=torch.float32, device=dev)
+                   for dev, _, _ in self._replicas]
         outs = []
-        with torch.inference_mode():
-            for (dev, vt, parsing), c in zip(self._replicas, chunks):
-                sw = torch.as_tensor(s_w, dtype=torch.float32, device=dev)
+        with torch.inference_mode(), span("pipeline.launch"):
+            for (dev, vt, parsing), c, sw in zip(self._replicas, chunks, sws):
                 with spatial.on_device(dev):  # each replica's kernels on its card
                     outs.append(graph(vt, parsing, c[0], sw, *c[1:]))
         if len(outs) == 1:
             return outs[0]
-        return torch.cat([o.to(self.device) for o in outs])
+        with span("pipeline.gather"):
+            return torch.cat([o.to(self.device) for o in outs])
 
     def process_image(self, frame_u8, s_w, d_s: float) -> np.ndarray:
         out = self.process_batch(np.asarray(frame_u8)[None], s_w, d_s)[0].cpu().numpy()

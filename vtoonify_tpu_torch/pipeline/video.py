@@ -19,16 +19,17 @@ cv2 is not installed.
 from __future__ import annotations
 
 import collections
-import contextlib
 import queue
 import threading
 from dataclasses import dataclass
 from typing import Callable, Iterable, Optional
 
 import numpy as np
+import torch
 
 from vtoonify_tpu_torch import native
 from vtoonify_tpu_torch.pipeline import crop as crop_mod
+from vtoonify_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -140,9 +141,7 @@ class _AsyncWriter:
             item = self._q.get()
             if item is None:
                 break
-            ctx = (self._timer.stage("encode") if self._timer is not None
-                   else contextlib.nullcontext())
-            with ctx:
+            with span("engine.encode", self._timer):
                 self._writer.write(native.depth_to_space2_u8(item, bgr=True)
                                    if self._packed else native.rgb_to_bgr(item))
             self._count += 1
@@ -201,17 +200,22 @@ def toonify_frames(
 
     The first frame fixes the crop parameters and the style code for the
     whole stream (style_transfer.py:113-150). `s_w` may be passed directly
-    to skip alignment. `parsing_maps` (N, H, W, 19) overrides BiSeNet. Pass
-    a `utils.profiling.StageTimer` as `timer` to get a
-    decode/preprocess/dispatch/fetch/encode breakdown in `result.stages`.
+    to skip alignment. `parsing_maps` (N, H, W, 19) overrides BiSeNet.
+
+    Each stage is a `utils.profiling.span` `vt::engine.<stage>`: decode,
+    preprocess, stack (a batch's frames into one array), dispatch
+    (`process_batch` until it returns), fetch (a batch to the host), write
+    (its frames to the writer, then the batch released) and, in a file
+    writer's thread, encode. `fetch` holds fetch_wait (on a card: an event
+    recorded on the batch's stream and waited on, the device work queued
+    ahead of the copy) and fetch_copy (the copy itself); their sum is
+    `fetch`. Pass a `StageTimer` as `timer` to get these totals, by stage
+    name, in `result.stages`; under `torch.profiler` they are host ranges
+    in the trace.
     `batch_size=None` picks a resolution-aware batch from the first crop's
     size (`model_api.dynamic_batch_size`).
     """
     from vtoonify_tpu_torch.pipeline.model_api import dynamic_batch_size
-
-    def timed(name):
-        return (timer.stage(name) if timer is not None
-                else contextlib.nullcontext())
 
     crop_params = None
     writer = None
@@ -224,26 +228,37 @@ def toonify_frames(
     def flush_ready(block: bool):
         while in_flight and (block or len(in_flight) >= max_in_flight):
             dev_batch, count = in_flight.popleft()
-            with timed("fetch"):
-                host = dev_batch.cpu().numpy()  # waits for the device
-            for k in range(count):
-                writer.write(host[k])
+            with span("engine.fetch", timer):
+                if dev_batch.is_cuda:
+                    with span("engine.fetch_wait", timer):
+                        done = torch.cuda.Event()
+                        done.record(torch.cuda.current_stream(dev_batch.device))
+                        done.synchronize()
+                with span("engine.fetch_copy", timer):
+                    host = dev_batch.cpu().numpy()
+            with span("engine.write", timer):
+                for k in range(count):
+                    writer.write(host[k])
+                # the batch is released here, inside the span: a fresh host
+                # copy is unmapped when freed, unless the writer keeps frames
+                del host, dev_batch
 
     def submit(batch_frames):
-        arr = np.stack(batch_frames)
-        if parsing_maps is not None:
-            pm = parsing_maps[frame_idx - len(batch_frames): frame_idx]
-        # a frame-parallel pipeline splits a batch evenly over its dp rows
-        # (a (dp, tp) mesh's dp width): a short last batch is topped up with
-        # its last frame (not written); a spatial mesh splits rows and takes
-        # any batch
-        mesh = getattr(pipeline, "mesh", None)
-        extra = 0 if mesh is None else -len(arr) % mesh.shape.get("dp", 1)
-        if extra:
-            arr = np.concatenate([arr, np.repeat(arr[-1:], extra, 0)])
+        with span("engine.stack", timer):
+            arr = np.stack(batch_frames)
             if parsing_maps is not None:
-                pm = np.concatenate([pm, np.repeat(pm[-1:], extra, 0)])
-        with timed("dispatch"):
+                pm = parsing_maps[frame_idx - len(batch_frames): frame_idx]
+            # a frame-parallel pipeline splits a batch evenly over its dp rows
+            # (a (dp, tp) mesh's dp width): a short last batch is topped up with
+            # its last frame (not written); a spatial mesh splits rows and takes
+            # any batch
+            mesh = getattr(pipeline, "mesh", None)
+            extra = 0 if mesh is None else -len(arr) % mesh.shape.get("dp", 1)
+            if extra:
+                arr = np.concatenate([arr, np.repeat(arr[-1:], extra, 0)])
+                if parsing_maps is not None:
+                    pm = np.concatenate([pm, np.repeat(pm[-1:], extra, 0)])
+        with span("engine.dispatch", timer):
             if parsing_maps is not None:
                 out = pipeline.process_batch_with_parsing(arr, pm, s_w, style_degree)
             else:
@@ -253,7 +268,7 @@ def toonify_frames(
 
     frame_iter = iter(frames)
     while True:
-        with timed("decode"):
+        with span("engine.decode", timer):
             item = next(frame_iter, None)
         if item is None:
             break
@@ -277,7 +292,7 @@ def toonify_frames(
                 s_w = pipeline.compute_style(aligned, color_transfer)
             first = False
         else:
-            with timed("preprocess"):
+            with span("engine.preprocess", timer):
                 frame = crop_mod.preprocess_frame(frame, crop_params, scale_image)
 
         if crop_writer is not None:

@@ -1,6 +1,6 @@
-"""Per-stage wall-clock timing of the host pipeline (`StageTimer`, a copy
-of the class in vtoonify_tpu/utils/profiling.py) and the trainers' device
-trace of a window of steps (`StepTrace`, its port over `torch.profiler`)."""
+"""The port's host spans (`span`), per-stage wall-clock totals of the host
+pipeline (`StageTimer`) and the trainers' device trace of a window of steps
+(`StepTrace`, over `torch.profiler`)."""
 
 from __future__ import annotations
 
@@ -62,21 +62,17 @@ class StepTrace:
 
 
 class StageTimer:
-    """Accumulating wall-clock stage timer for host-side pipeline phases
-    (decode / preprocess / dispatch / fetch / encode)."""
+    """Accumulating wall-clock totals of host-side pipeline stages, fed by
+    `span` (the video engine's decode / preprocess / stack / dispatch /
+    fetch / fetch_wait / fetch_copy / write / encode)."""
 
     def __init__(self):
         self.totals = defaultdict(float)
         self.counts = defaultdict(int)
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+    def add(self, name: str, seconds: float):
+        self.totals[name] += seconds
+        self.counts[name] += 1
 
     def summary(self) -> dict:
         return {
@@ -84,3 +80,46 @@ class StageTimer:
                 "mean_ms": 1000 * self.totals[k] / max(self.counts[k], 1)}
             for k in self.totals
         }
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("key", "timer", "range", "t0")
+
+    def __init__(self, name: str, timer, traced: bool):
+        self.key = name.rsplit(".", 1)[-1]
+        self.timer = timer
+        self.range = (torch.profiler.record_function("vt::" + name)
+                      if traced else None)
+
+    def __enter__(self):
+        if self.range is not None:
+            self.range.__enter__()
+        if self.timer is not None:
+            self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.timer is not None:
+            self.timer.add(self.key, time.perf_counter() - self.t0)
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
+
+
+def span(name: str, timer: StageTimer = None):
+    """The port's one way to open a host span: `with span("engine.fetch", timer):`.
+
+    While `torch.profiler` records on this thread, the span is the range
+    `vt::<name>` (`record_function`), on the trace's clock beside the
+    device's kernels and copies. With a `StageTimer`, its wall-clock
+    duration is added to the timer under the key `name` after its last
+    dot: `engine.fetch_wait` -> `fetch_wait`, `fused_leaky_relu` ->
+    `fused_leaky_relu`. With neither, it returns one shared no-op context:
+    no allocation, no clock read."""
+    traced = torch.autograd._profiler_enabled()
+    if timer is None and not traced:
+        return _NO_SPAN
+    return _Span(name, timer, traced)
