@@ -8,8 +8,9 @@ signed pads and 12-tap filters, every up/down pair, rows on and off the
 elements, warps of non-square images onto ragged outputs partly outside the
 image; and
 each autograd Function's backward and second-order gradient on the card;
-R1 and the path-length penalty card against CPU; and the stage-1 and T
-training steps at the --tiny size, card against CPU. The main-path shapes are
+R1 and the path-length penalty card against CPU; the stage-1 and T
+training steps at the --tiny size, card against CPU; and the video engine's
+fetch through a copy stream into page-locked blocks against process_batch. The main-path shapes are
 checked by chip_smoke.py. Run on a machine with an H100 (it has no
 JAX, so skip the suite's conftest):
 
@@ -552,6 +553,76 @@ def test_pipeline_options_on_card(dev):
         assert card.device.type == "cuda" and card.shape == host.shape == (1, 144, 176, 3)
         d = (card.cpu().int() - host.int()).abs().float()
         assert d.max().item() <= 2 and d.mean().item() <= 0.05, (margin, d.max(), d.mean())
+
+
+class _KeepWriter:
+    """The engine's writer: keeps the frames of every `every`-th batch of
+    `batch` frames (the views the engine hands over), by frame index."""
+
+    def __init__(self, batch, every):
+        self.batch, self.every, self.frames, self.count = batch, every, {}, 0
+
+    def write(self, frame):
+        if (self.count // self.batch) % self.every == 0:
+            self.frames[self.count] = frame
+        self.count += 1
+
+    def close(self):
+        return self.count
+
+
+@pytest.mark.parametrize("option,every", [
+    ("plain", 1),          # every frame kept: no block is freed in the run
+    ("plain", 2),          # every other batch kept: freed blocks are reused
+    ("packed_output", 1),  # (B, 2H, 2W, 12) frames
+    ("size_bucket", 1),    # a strided crop of the padded output
+])
+def test_engine_fetch_on_card(dev, option, every):
+    """The video engine on the card at the tiny configuration (bf16) over 6
+    batches (5 of 4 frames and a short 2; max_in_flight 3): each batch goes
+    to the host on a copy stream into a page-locked block, and the writer
+    keeps the views it is handed. After the run every kept frame equals,
+    byte for byte, `process_batch(...).cpu()` of its batch: no block was
+    reused under a held view. `copy_enqueue` counts every batch."""
+    from vtoonify_tpu_torch.models import bisenet, vtoonify
+    from vtoonify_tpu_torch.pipeline import video
+    from vtoonify_tpu_torch.pipeline.toonify import ToonifyPipeline
+    from vtoonify_tpu_torch.utils.profiling import StageTimer
+
+    g = torch.Generator().manual_seed(7)
+    cfg = vtoonify.VToonifyConfig(in_size=32, out_size=128, channel_multiplier=1,
+                                  num_res_layers=2)
+    vt, parsing = vtoonify.init_vtoonify(cfg, g), bisenet.init_bisenet(generator=g)
+    with torch.no_grad():
+        for blk in vt.generator.generator.to_rgbs:
+            blk.bias.normal_(0.0, 0.5, generator=g)
+    kw = {"plain": {}, "packed_output": {"packed_output": True},
+          "size_bucket": {"size_bucket": 32, "bucket_margin": 8}}[option]
+    pipe = ToonifyPipeline(vt, cfg, parsing, dtype=torch.bfloat16, **kw)
+    rng = np.random.RandomState(7)
+    s_w = (rng.randn(1, cfg.n_latent, 512) * 0.3).astype(np.float32)
+    frames = rng.randint(0, 256, (22, 40, 56, 3)).astype(np.uint8)
+    writer, timer = _KeepWriter(4, every), StageTimer()
+    result = video.toonify_frames(
+        pipe, ((25.0, f) for f in frames), lambda fps, size: writer,
+        scale_image=False, batch_size=4, max_in_flight=3, s_w=s_w, timer=timer)
+    assert result.frames_written == 22
+    counts = {k: v["count"] for k, v in result.stages.items()}
+    assert counts["copy_enqueue"] == counts["fetch_wait"] == counts["fetch"] == 6
+    base = writer.frames[0]
+    while isinstance(base, np.ndarray):
+        base = base.base
+    assert isinstance(base, torch.Tensor) and base.is_pinned()
+    shape = (80, 112, 12) if option == "packed_output" else (160, 224, 3)
+    kept = 0
+    for i in range(0, 22, 4):
+        want = pipe.process_batch(frames[i:i + 4], s_w, 0.5).cpu().numpy()
+        assert want.shape[1:] == shape and want.std() > 10
+        for k, w in enumerate(want):
+            if i + k in writer.frames:
+                np.testing.assert_array_equal(writer.frames[i + k], w)
+                kept += 1
+    assert kept == (22 if every == 1 else 12)
 
 
 def test_raft_and_smoothing_card_vs_cpu(dev):

@@ -160,6 +160,41 @@ def test_engine_matches_process_batch(batch_size, parsing, frame_limit):
             np.testing.assert_array_equal(writer.frames[i + k], w)
 
 
+class _KeepingWriter:
+    """Keeps every frame as the engine hands it over (its view into the
+    batch's host copy) beside a copy taken when it was written."""
+
+    def __init__(self):
+        self.views, self.copies = [], []
+
+    def write(self, frame):
+        self.views.append(frame)
+        self.copies.append(frame.copy())
+
+    def close(self):
+        return len(self.views)
+
+
+@pytest.mark.parametrize("max_in_flight", [1, 3])
+def test_engine_kept_frames_outlive_later_batches(max_in_flight):
+    """A writer that keeps the engine's frames: after the run, that is
+    after every later batch was fetched and written, each kept view still
+    holds what it held when written, and that is its batch's output
+    (11 frames in batches of 3: 3, 3, 3 and a short 2)."""
+    pipe, s_w = _pipe()
+    frames = np.random.RandomState(31).randint(0, 256, (11, 32, 32, 3)).astype(np.uint8)
+    writer = _KeepingWriter()
+    result = video.toonify_frames(
+        pipe, ((25.0, f) for f in frames), lambda fps, size: writer,
+        scale_image=False, batch_size=3, max_in_flight=max_in_flight, s_w=s_w)
+    assert result.frames_written == 11
+    for i in range(0, 11, 3):
+        want = pipe.process_batch(frames[i:i + 3], s_w, 0.5).numpy()
+        for k, w in enumerate(want):
+            np.testing.assert_array_equal(writer.views[i + k], writer.copies[i + k])
+            np.testing.assert_array_equal(writer.views[i + k], w)
+
+
 def test_toonify_video_cv2_round_trip(tmp_path):
     """A 6-frame mp4 written with cv2: the stylized mp4 holds 6 frames at 4x
     the size, and the crop video 6 frames at the input size."""

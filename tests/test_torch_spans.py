@@ -74,7 +74,7 @@ def test_span_without_timer_or_profiler_is_the_shared_no_op():
 def test_engine_stages_split_the_fetch(tmp_path):
     """11 frames in batches of 4 (4, 4, 3) into the cv2 file writer: the
     stages the engine always had, with their counts, and the fetch split
-    into its copy (a CPU batch waits on no event)."""
+    into its copy (a CPU batch waits on no event and queues no copy)."""
     pipe, s_w = _pipe()
     frames = np.random.RandomState(22).randint(0, 256, (11, 32, 32, 3)).astype(np.uint8)
     timer = StageTimer()
@@ -89,7 +89,7 @@ def test_engine_stages_split_the_fetch(tmp_path):
     assert {k: counts[k] for k in ("decode", "preprocess", "dispatch", "fetch", "encode")} == {
         "decode": 12, "preprocess": 10, "dispatch": 3, "fetch": 3, "encode": 11}
     assert counts["stack"] == counts["fetch_copy"] == counts["write"] == 3
-    assert "fetch_wait" not in counts
+    assert "fetch_wait" not in counts and "copy_enqueue" not in counts
     st = result.stages
     assert st["fetch_copy"]["total_s"] <= st["fetch"]["total_s"]
 

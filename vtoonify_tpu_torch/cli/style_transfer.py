@@ -87,7 +87,8 @@ def build_parser():
     p.add_argument("--profile", action="store_true",
                    help="print the video engine's stage breakdown after "
                         "video processing: decode, preprocess, dispatch, "
-                        "fetch (fetch_wait + fetch_copy), write, encode")
+                        "copy_enqueue (on a card), fetch (fetch_wait + "
+                        "fetch_copy), write, encode")
     p.add_argument("--frame_limit", type=int, default=None,
                    help="process at most N video frames")
     return p

@@ -9,8 +9,12 @@ frames to any writer (packed frames from a `packed_output` pipeline, which
 the file writer finishes with `native.depth_to_space2_u8`). `process_batch`
 returns its device tensor before the
 card has finished, so up to `max_in_flight` batches are queued before the
-oldest is fetched (`.cpu()`, which waits for it): the host preprocesses
-the next batch while the card computes. `toonify_video` wraps the engine
+oldest is fetched: the host preprocesses the next batch while the card
+computes. A batch on a card is copied to the host as soon as it is
+dispatched, on a copy stream behind an event on the batch's own stream,
+into a page-locked block of torch's caching host allocator; the fetch
+waits for that batch's compute and copy only, so the batches queued
+behind it keep the card busy. `toonify_video` wraps the engine
 with cv2 decode on a prefetch thread and cv2 encode on a writer thread.
 cv2 is imported only there, so the engine runs over in-memory frames where
 cv2 is not installed.
@@ -158,7 +162,8 @@ class _AsyncWriter:
 
 class MemoryWriter:
     """A writer that keeps the frames in memory (or, with keep=False, only
-    counts them)."""
+    counts them). The kept frames are the engine's views: on a card each
+    keeps its batch's page-locked host block until the frames are dropped."""
 
     def __init__(self, keep: bool = True):
         self.keep = keep
@@ -204,14 +209,22 @@ def toonify_frames(
 
     Each stage is a `utils.profiling.span` `vt::engine.<stage>`: decode,
     preprocess, stack (a batch's frames into one array), dispatch
-    (`process_batch` until it returns), fetch (a batch to the host), write
-    (its frames to the writer, then the batch released) and, in a file
-    writer's thread, encode. `fetch` holds fetch_wait (on a card: an event
-    recorded on the batch's stream and waited on, the device work queued
-    ahead of the copy) and fetch_copy (the copy itself); their sum is
-    `fetch`. Pass a `StageTimer` as `timer` to get these totals, by stage
-    name, in `result.stages`; under `torch.profiler` they are host ranges
-    in the trace.
+    (`process_batch` until it returns), copy_enqueue (on a card only: the
+    batch's copy to a page-locked host block queued on a copy stream, right
+    after the dispatch; its count is the batches that took this path),
+    fetch (a batch to the host), write (its frames to the writer, then the
+    batch released) and, in a file writer's thread, encode. `fetch` holds
+    fetch_wait (on a card: the wait for the copy's done event, that is for
+    the batch's compute and its copy, not for the batches queued after it)
+    and fetch_copy (on a card the numpy view of the page-locked block; on
+    the CPU `.cpu().numpy()`); their sum is `fetch`. Pass a `StageTimer` as
+    `timer` to get these totals, by stage name, in `result.stages`; under
+    `torch.profiler` they are host ranges in the trace.
+
+    The writer gets each frame as a numpy view into its batch's host copy,
+    valid for as long as the writer holds it: a writer that keeps frames
+    keeps their batch's page-locked block, which torch's host allocator
+    reuses only once the last view is gone.
     `batch_size=None` picks a resolution-aware batch from the first crop's
     size (`model_api.dynamic_batch_size`).
     """
@@ -220,28 +233,51 @@ def toonify_frames(
     crop_params = None
     writer = None
     crop_writer = None
+    # (device batch, its page-locked host copy, the copy's done event,
+    # frames to write); the device batch is kept until the fetch has waited,
+    # so the device allocator cannot reuse it under the copy
     in_flight = collections.deque()
+    copy_streams = {}
     batch = []
     first = True
     frame_idx = 0
 
+    def enqueue_copy(dev_batch):
+        """Queue `dev_batch`'s copy to a page-locked host block on the
+        device's copy stream, behind the work queued so far on the batch's
+        stream; return the block and the copy's done event."""
+        with span("engine.copy_enqueue", timer):
+            dev = dev_batch.device
+            stream = copy_streams.get(dev)
+            if stream is None:
+                stream = copy_streams[dev] = torch.cuda.Stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                # a strided batch (a size_bucket crop) is packed on the card,
+                # in the copy stream's pool, so freeing it here is safe
+                src = dev_batch.contiguous()
+                pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+                pinned.copy_(src, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
+        return pinned, done
+
     def flush_ready(block: bool):
         while in_flight and (block or len(in_flight) >= max_in_flight):
-            dev_batch, count = in_flight.popleft()
+            dev_batch, pinned, done, count = in_flight.popleft()
             with span("engine.fetch", timer):
-                if dev_batch.is_cuda:
+                if done is not None:
                     with span("engine.fetch_wait", timer):
-                        done = torch.cuda.Event()
-                        done.record(torch.cuda.current_stream(dev_batch.device))
                         done.synchronize()
                 with span("engine.fetch_copy", timer):
-                    host = dev_batch.cpu().numpy()
+                    host = dev_batch.cpu().numpy() if pinned is None else pinned.numpy()
             with span("engine.write", timer):
                 for k in range(count):
                     writer.write(host[k])
-                # the batch is released here, inside the span: a fresh host
-                # copy is unmapped when freed, unless the writer keeps frames
-                del host, dev_batch
+                # the batch is released here, inside the span: a page-locked
+                # block returns to torch's host cache once no frame of it is
+                # held
+                del host, pinned, dev_batch
 
     def submit(batch_frames):
         with span("engine.stack", timer):
@@ -263,7 +299,8 @@ def toonify_frames(
                 out = pipeline.process_batch_with_parsing(arr, pm, s_w, style_degree)
             else:
                 out = pipeline.process_batch(arr, s_w, style_degree)
-        in_flight.append((out, len(batch_frames)))
+        pinned, done = enqueue_copy(out) if out.is_cuda else (None, None)
+        in_flight.append((out, pinned, done, len(batch_frames)))
         flush_ready(block=False)
 
     frame_iter = iter(frames)

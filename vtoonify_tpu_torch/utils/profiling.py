@@ -64,7 +64,7 @@ class StepTrace:
 class StageTimer:
     """Accumulating wall-clock totals of host-side pipeline stages, fed by
     `span` (the video engine's decode / preprocess / stack / dispatch /
-    fetch / fetch_wait / fetch_copy / write / encode)."""
+    copy_enqueue / fetch / fetch_wait / fetch_copy / write / encode)."""
 
     def __init__(self):
         self.totals = defaultdict(float)
