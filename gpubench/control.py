@@ -5,11 +5,12 @@
 
 For each of --seeds, one run of the cell (a short window at the cell's own
 load and sizes, then the output check): the program's readings, the worst
-sampled frame's gap to the float32 reference. For each of --control-seeds,
-the control: the reference computed with float8 (e4m3) operands in the
-program's place, on the first `check_frames` frames of the seed's pool, held
-to the float32 reference. All in one process, so the set-up is paid once a
-seed and the build once. Prints one JSON object and writes it to --out.
+sampled output's numbers against the family's reference. For each of
+--control-seeds, the control's readings: the family's reference in the
+nearest precision below the configuration's, in the program's place
+(`control_numbers` of gpubench/families/<family>.py). All in one process,
+so the set-up is paid once a seed and the build once. Prints one JSON object
+and writes it to --out.
 """
 
 from __future__ import annotations
@@ -33,10 +34,8 @@ from gpubench import run as R  # noqa: E402
 
 
 def control_readings(cell, seed, device="cuda:0"):
-    """Per frame, the float8 control's gaps to the float32 reference."""
-    tr = cell.traffic
-    samples = [(k % tr["pool"], None) for k in range(tr["check_frames"])]
-    nums = R.reference_numbers(cell.config, tr, seed, samples, device, against="fp8")
+    """The control's worst reading of each number its family computes."""
+    nums = manifest.family(cell).control_numbers(cell.config, cell.traffic, seed, device)
     return {k: max(n[k] for n in nums) for k in nums[0]}
 
 

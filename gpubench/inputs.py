@@ -7,9 +7,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from gpubench.weights import derive_seed, log2i
+from gpubench.seeds import derive_seed
+from gpubench.weights import log2i
 
-STREAM_VT, STREAM_BISENET, STREAM_STYLE, STREAM_FRAMES, STREAM_SAMPLE = range(5)
+# the harness samples the outputs it checks on seeds.STREAM_SAMPLE (4)
+STREAM_VT, STREAM_BISENET, STREAM_STYLE, STREAM_FRAMES = range(4)
 
 
 def frame_pool(seed: int, n: int, h: int, w: int, device) -> torch.Tensor:

@@ -66,12 +66,13 @@ def test_frames_from_every_replica_are_checked():
 
 @pytest.mark.parametrize("like,backbone", [("vtd-video-400x360", "dualstylegan"),
                                            ("vtt-video-400x360", "toonify"),
-                                           ("vtd-image-1024", "dualstylegan")])
+                                           ("vtd-image-1024", "dualstylegan"),
+                                           ("vtd-video-400x360-dp4", "dualstylegan")])
 def test_control_is_not_correct(like, backbone):
     """The float8 control in the program's place fails the cell's limits."""
     cell = tiny.cell(like, backbone=backbone)
-    samples = [(k, None) for k in range(cell.traffic["check_frames"])]
-    nums = run.reference_numbers(cell.config, cell.traffic, SEED, samples, "cpu", against="fp8")
+    nums = manifest.family(cell).control_numbers(cell.config, cell.traffic, SEED, "cpu")
+    assert len(nums) == cell.traffic["check_frames"]
     assert not run.judge(nums, cell.limits)[0]
 
 
@@ -100,13 +101,16 @@ def _faulty(monkeypatch, fault):
     (None, "vtd-video-400x360", 2),
     ("answer_altered", "vtd-video-400x360", 1),
     ("answer_offset", "vtd-image-1024", 1),
-    ("exchange_left_out", "vtd-video-400x360", 2)])
+    ("exchange_left_out", "vtd-video-400x360", 2),
+    (None, "vtd-video-400x360-dp4", 4),
+    ("answer_altered", "vtd-video-400x360-dp4", 4),
+    ("exchange_left_out", "vtd-video-400x360-dp4", 4)])
 def test_fault_makes_the_run_not_correct(monkeypatch, fault, like, dp):
     """The whole run past the look for a card, with the timed path broken
     underneath: `correct` comes out false (and true without a fault)."""
     cell = tiny.cell(like, dp=dp)
     if cell.traffic["driver"] == "engine":
-        cell.traffic["batch"] = 4
+        cell.traffic["batch"] = 4 * max(1, dp // 2)  # two frames a device from dp 2 up
     _faulty(monkeypatch, fault)
     res = run.run_cell(cell, SEED, 3.0, False, devices=["cpu"] * dp)
     assert res["correct"] is (fault is None)
@@ -141,7 +145,8 @@ def test_imports_no_jax_and_reference_no_program():
         "for m in pkgutil.walk_packages(gpubench.__path__, 'gpubench.'):\n"
         "    importlib.import_module(m.name)\n"
         "from gpubench import manifest, run\n"
-        "run.build_program  # the program's modules load where a run needs them\n"
+        "cell = manifest.load_cell('vtd-video-400x360')\n"
+        "manifest.family(cell), manifest.driver(cell)  # the program loads where a run needs it\n"
         "import vtoonify_tpu_torch.pipeline.toonify, vtoonify_tpu_torch.pipeline.video\n"
         "import vtoonify_tpu_torch.utils.checkpoint, vtoonify_tpu_torch.parallel.mesh\n"
         "for name in ('dispatch_ms.video', 'mfu.image'):\n"

@@ -19,6 +19,8 @@ from dataclasses import dataclass
 
 import torch
 
+from gpubench.seeds import derive_seed
+
 # The layers that make the RGB image (ToRGB, the encoder's skip, the fusion
 # skips) draw their weights at this gain, so that the image before the clamp
 # has a spread near 0.5 and is seldom clamped: an image mostly at +-1 would
@@ -233,11 +235,6 @@ def bisenet_layout(cfg: dict) -> list:
         out += _cbr(f"{head}.conv", cin, mid, 3)
         out += _plain_conv(f"{head}.conv_out", n, mid, 1, bias=False)
     return out
-
-
-def derive_seed(seed: int, stream: int) -> int:
-    """One 63-bit seed per purpose (weights, style, frames, ...) of a run."""
-    return (int(seed) * 1_000_003 + stream * 7_919) % (2 ** 63 - 1)
 
 
 def make_state(layout: list, seed: int, device, stream: int = 0) -> dict:
